@@ -1,0 +1,209 @@
+// Montgomery arithmetic mod p < 2^256 on 8 x 32-bit limbs, as device
+// functions inlined into every kernel of the port.
+//
+// Replaces the JAX package's FieldOps limb arithmetic
+// (spartan2_tpu/field/jnp_ops.py: add/sub :126-146, mont_mul :185,
+// to_mont/from_mont :211-228), which ran on (22, n) planes of 12-bit
+// limbs with R = 2^264.  Here an element is 8 little-endian 32-bit limbs,
+// 32 contiguous bytes (two 16-byte loads), R = 2^256, always canonical
+// in [0, p).  Both P-256 moduli exceed 2^255, so a + b and the Montgomery
+// product can carry out of limb 7: that carry takes part in the
+// conditional subtract (fe_reduce_once).
+//
+// Cost: one product is 64 + 64 32x32->64 partial products (CIOS); the
+// kernels that use it are bound by these multiply-adds, not by bytes.
+// The plain PyTorch version is spartan2_tpu_torch/field/ops.py.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace sp2 {
+
+struct Fe {
+  uint32_t v[8];
+};
+
+// Field constants, passed to every kernel by value.
+struct Field {
+  uint32_t p[8];
+  uint32_t one[8];  // R mod p (Montgomery one)
+  uint32_t n0;      // -p^{-1} mod 2^32
+};
+
+// Host: unpack the 17 words written by field_words() on the Python side.
+static inline Field field_from_words(const uint32_t* w) {
+  Field f;
+  for (int i = 0; i < 8; ++i) f.p[i] = w[i];
+  for (int i = 0; i < 8; ++i) f.one[i] = w[8 + i];
+  f.n0 = w[16];
+  return f;
+}
+
+static inline Fe fe_from_words(const uint32_t* w) {
+  Fe x;
+  for (int i = 0; i < 8; ++i) x.v[i] = w[i];
+  return x;
+}
+
+__device__ __forceinline__ Fe fe_load(const uint32_t* base, size_t i) {
+  const uint4* q = reinterpret_cast<const uint4*>(base + 8 * i);
+  uint4 a = q[0];
+  uint4 b = q[1];
+  Fe r;
+  r.v[0] = a.x; r.v[1] = a.y; r.v[2] = a.z; r.v[3] = a.w;
+  r.v[4] = b.x; r.v[5] = b.y; r.v[6] = b.z; r.v[7] = b.w;
+  return r;
+}
+
+__device__ __forceinline__ void fe_store(uint32_t* base, size_t i, const Fe& x) {
+  uint4* q = reinterpret_cast<uint4*>(base + 8 * i);
+  q[0] = make_uint4(x.v[0], x.v[1], x.v[2], x.v[3]);
+  q[1] = make_uint4(x.v[4], x.v[5], x.v[6], x.v[7]);
+}
+
+__device__ __forceinline__ Fe fe_zero() {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.v[i] = 0;
+  return r;
+}
+
+__device__ __forceinline__ Fe fe_one(const Field& F) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.v[i] = F.one[i];
+  return r;
+}
+
+__device__ __forceinline__ bool fe_is_zero(const Fe& a) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc |= a.v[i];
+  return acc == 0;
+}
+
+// t + carry * 2^256 < 2p  ->  (t + carry * 2^256) mod p
+__device__ __forceinline__ Fe fe_reduce_once(const uint32_t t[8], uint32_t carry,
+                                             const Field& F) {
+  Fe d;
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t s = (uint64_t)t[i] - (uint64_t)F.p[i] - borrow;
+    d.v[i] = (uint32_t)s;
+    borrow = (s >> 63) & 1;
+  }
+  // subtract when the value reached 2^256 or t >= p
+  bool take = carry != 0 || borrow == 0;
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.v[i] = take ? d.v[i] : t[i];
+  return r;
+}
+
+__device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b, const Field& F) {
+  uint32_t t[8];
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t s = (uint64_t)a.v[i] + (uint64_t)b.v[i] + c;
+    t[i] = (uint32_t)s;
+    c = s >> 32;
+  }
+  return fe_reduce_once(t, (uint32_t)c, F);
+}
+
+__device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b, const Field& F) {
+  uint32_t t[8];
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t s = (uint64_t)a.v[i] - (uint64_t)b.v[i] - borrow;
+    t[i] = (uint32_t)s;
+    borrow = (s >> 63) & 1;
+  }
+  // a < b: add p back (mod 2^256)
+  uint32_t mask = borrow ? 0xFFFFFFFFu : 0u;
+  Fe r;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t s = (uint64_t)t[i] + (uint64_t)(F.p[i] & mask) + c;
+    r.v[i] = (uint32_t)s;
+    c = s >> 32;
+  }
+  return r;
+}
+
+__device__ __forceinline__ Fe fe_double(const Fe& a, const Field& F) {
+  return fe_add(a, a, F);
+}
+
+// Montgomery product a * b * 2^-256 mod p (CIOS, 32-bit words).
+__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b, const Field& F) {
+  uint32_t t[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint64_t s = (uint64_t)t[j] + (uint64_t)a.v[j] * b.v[i] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s8 = (uint64_t)t[8] + c;
+    t[8] = (uint32_t)s8;
+    t[9] = (uint32_t)(s8 >> 32);
+    uint32_t m = t[0] * F.n0;
+    uint64_t s = (uint64_t)t[0] + (uint64_t)m * F.p[0];
+    c = s >> 32;
+#pragma unroll
+    for (int j = 1; j < 8; ++j) {
+      s = (uint64_t)t[j] + (uint64_t)m * F.p[j] + c;
+      t[j - 1] = (uint32_t)s;
+      c = s >> 32;
+    }
+    s = (uint64_t)t[8] + c;
+    t[7] = (uint32_t)s;
+    t[8] = t[9] + (uint32_t)(s >> 32);
+  }
+  return fe_reduce_once(t, t[8], F);
+}
+
+__device__ __forceinline__ Fe fe_from_mont(const Fe& a, const Field& F) {
+  Fe one = fe_zero();
+  one.v[0] = 1;
+  return fe_mul(a, one, F);
+}
+
+__device__ __forceinline__ Fe fe_shfl_down(const Fe& a, int off) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.v[i] = __shfl_down_sync(0xFFFFFFFFu, a.v[i], off);
+  return r;
+}
+
+// Sum of one Fe per thread over a block of NT threads (NT a multiple of
+// 32, at most 1024); the result is valid in thread 0.
+template <int NT>
+__device__ __forceinline__ Fe block_sum(Fe x, const Field& F) {
+  __shared__ Fe warp_sums[NT / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fe_add(x, fe_shfl_down(x, off), F);
+  if (lane == 0) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    x = lane < NT / 32 ? warp_sums[lane] : fe_zero();
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x = fe_add(x, fe_shfl_down(x, off), F);
+  }
+  __syncthreads();
+  return x;
+}
+
+}  // namespace sp2

@@ -1,0 +1,248 @@
+"""Fixed-base comb MSM over static generators: kernel 3 (csrc/comb.cu)
+and its plain version.
+
+Each row MSM sum_j v[row, j] * G_j splits every scalar into 6-bit
+digits and adds one precomputed point T[w][d][j] = (d * 2^(6w)) * G_j per
+window, then sums the row's columns (the reference's FixedBaseMul,
+msm.rs:637-774; the JAX package's ec/comb.py).  Points are Jacobian
+(..., 3, 8) int32 tensors over the base field in Montgomery form, Z = 0
+for the identity.  Every addition is complete.
+
+The plain versions follow the kernels' order of additions exactly, so a
+kernel's Jacobian output equals its plain version's limb for limb.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..field import ops
+from ..field.limbs import limbs_to_ints, to_device
+from ..utils.cuda import CudaKernel, I, P, check_cuda, field_words
+from .curve import Affine, CurveSpec
+
+COMB = CudaKernel("comb", {
+    "sp2_comb_build": [I, I, P, P, P, P],
+    "sp2_comb_rows": [I, I, I, P, P, P, P, P],
+})
+
+WINDOW_BITS = 6
+DIGITS = 1 << WINDOW_BITS
+_SUM_NT = 128  # threads of a block sum (csrc/curve.cuh SUM_NT)
+
+
+def n_windows(nbits: int) -> int:
+    return -(-nbits // WINDOW_BITS)
+
+
+def curve_words(curve: CurveSpec) -> bytes:
+    """Base-field words followed by a in Montgomery form (csrc/curve.cuh)."""
+    F = curve.base
+    return field_words(F) + F.to_mont(curve.a % F.modulus).to_bytes(32, "little")
+
+
+# ---------------------------------------------------------------------------
+# plain group law (same formulas and branches as csrc/curve.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _is_zero(x: torch.Tensor) -> torch.Tensor:
+    return (x == 0).all(-1)
+
+
+def _inf_like(P: torch.Tensor, curve: CurveSpec) -> torch.Tensor:
+    one = ops.const(1, curve.base, P.shape[:-2], P.device)
+    return torch.stack([one, one, torch.zeros_like(one)], -2)
+
+
+def _sel(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask[..., None, None], a, b)
+
+
+def pt_dbl(P: torch.Tensor, curve: CurveSpec) -> torch.Tensor:
+    F = curve.base
+    mul, add, sub = (lambda a, b: ops.mont_mul(a, b, F),
+                     lambda a, b: ops.add(a, b, F), lambda a, b: ops.sub(a, b, F))
+    X, Y, Z = P.unbind(-2)
+    a = ops.const(curve.a, F, device=P.device)
+    XX, YY, ZZ = mul(X, X), mul(Y, Y), mul(Z, Z)
+    t = mul(X, YY)
+    t = add(t, t)
+    S = add(t, t)
+    M = add(add(add(XX, XX), XX), mul(a.expand_as(ZZ), mul(ZZ, ZZ)))
+    X3 = sub(mul(M, M), add(S, S))
+    y4 = mul(YY, YY)
+    y4 = add(y4, y4)
+    y4 = add(y4, y4)
+    y4 = add(y4, y4)
+    Y3 = sub(mul(M, sub(S, X3)), y4)
+    yz = mul(Y, Z)
+    R = torch.stack([X3, Y3, add(yz, yz)], -2)
+    return _sel(_is_zero(Z) | _is_zero(Y), _inf_like(P, curve), R)
+
+
+def pt_add(P: torch.Tensor, Q: torch.Tensor, curve: CurveSpec) -> torch.Tensor:
+    F = curve.base
+    mul, add, sub = (lambda a, b: ops.mont_mul(a, b, F),
+                     lambda a, b: ops.add(a, b, F), lambda a, b: ops.sub(a, b, F))
+    P, Q = torch.broadcast_tensors(P, Q)
+    X1, Y1, Z1 = P.unbind(-2)
+    X2, Y2, Z2 = Q.unbind(-2)
+    Z1Z1, Z2Z2 = mul(Z1, Z1), mul(Z2, Z2)
+    U1, U2 = mul(X1, Z2Z2), mul(X2, Z1Z1)
+    S1, S2 = mul(Y1, mul(Z2, Z2Z2)), mul(Y2, mul(Z1, Z1Z1))
+    H, Rr = sub(U2, U1), sub(S2, S1)
+    HH = mul(H, H)
+    HHH = mul(H, HH)
+    V = mul(U1, HH)
+    X3 = sub(sub(mul(Rr, Rr), HHH), add(V, V))
+    Y3 = sub(mul(Rr, sub(V, X3)), mul(S1, HHH))
+    Z3 = mul(mul(Z1, Z2), H)
+    out = torch.stack([X3, Y3, Z3], -2)
+    h0, r0 = _is_zero(H), _is_zero(Rr)
+    if bool((h0 & r0).any()):
+        out = _sel(h0 & r0, pt_dbl(P, curve), out)
+    out = _sel(h0 & ~r0, _inf_like(P, curve), out)
+    out = _sel(_is_zero(Z2), P, out)
+    return _sel(_is_zero(Z1), Q, out)
+
+
+def to_affine(pts: torch.Tensor, curve: CurveSpec) -> list[Affine]:
+    """(n, 3, 8) Jacobian Montgomery points -> host affine points."""
+    flat = limbs_to_ints(pts.reshape(-1, 8), curve.base, mont=True)
+    return [curve.to_affine(tuple(flat[3 * i : 3 * i + 3]))
+            for i in range(len(flat) // 3)]
+
+
+# ---------------------------------------------------------------------------
+# comb_build
+# ---------------------------------------------------------------------------
+
+
+def comb_build_plain(gx: torch.Tensor, gy: torch.Tensor, n_win: int,
+                     curve: CurveSpec) -> torch.Tensor:
+    """Plain version of ``comb_build``."""
+    one = ops.const(1, curve.base, gx.shape[:-1], gx.device)
+    B = torch.stack([gx, gy, one], -2)  # (C, 3, 8)
+    bases = [B]
+    for _ in range(1, n_win):
+        for _ in range(WINDOW_BITS):
+            B = pt_dbl(B, curve)
+        bases.append(B)
+    B = torch.stack(bases)  # (n_win, C, 3, 8)
+    rows = [_inf_like(B, curve), B]
+    acc = B
+    for _ in range(2, DIGITS):
+        acc = pt_add(acc, B, curve)
+        rows.append(acc)
+    return torch.stack(rows, 1).contiguous()  # (n_win, 64, C, 3, 8)
+
+
+def comb_build(gx: torch.Tensor, gy: torch.Tensor, n_win: int,
+               curve: CurveSpec) -> torch.Tensor:
+    """Tables T[w][d][j] = (d * 2^(6w)) * G_j as (n_win, 64, C, 3, 8) from
+    (C, 8) Montgomery affine generator coordinates."""
+    if gx.device.type == "cpu":
+        return comb_build_plain(gx, gy, n_win, curve)
+    check_cuda(gx, gy)
+    C = gx.shape[0]
+    if gx.shape != (C, 8) or gy.shape != (C, 8):
+        raise ValueError("comb_build: generator coordinates must be (C, 8)")
+    table = torch.empty(n_win, DIGITS, C, 3, 8, dtype=torch.int32,
+                        device=gx.device)
+    COMB.call("sp2_comb_build", n_win, C, gx.data_ptr(), gy.data_ptr(),
+              table.data_ptr(), curve_words(curve))
+    return table
+
+
+# ---------------------------------------------------------------------------
+# comb_rows
+# ---------------------------------------------------------------------------
+
+
+def scalar_digits(scal: torch.Tensor, n_win: int,
+                  bits: int = WINDOW_BITS) -> torch.Tensor:
+    """(..., 8) canonical scalars -> (n_win, ...) digits of ``bits`` bits,
+    lowest window first."""
+    u = scal.to(torch.int64) & 0xFFFFFFFF
+    out = []
+    for w in range(n_win):
+        bit = bits * w
+        limb, sh = bit // 32, bit % 32
+        v = u[..., limb]
+        if limb + 1 < 8:
+            v = v | (u[..., limb + 1] << 32)
+        out.append((v >> sh) & ((1 << bits) - 1))
+    return torch.stack(out)
+
+
+def row_sum_plain(pts: torch.Tensor, curve: CurveSpec) -> torch.Tensor:
+    """(R, C, 3, 8) -> (R, 3, 8) row sums in the order of the kernels'
+    block sum (csrc/curve.cuh block_pt_sum): thread t adds columns t,
+    t + 128, ... in order, then a halving tree over the 128 threads."""
+    R, C = pts.shape[:2]
+    k = -(-C // _SUM_NT)
+    if k * _SUM_NT > C:
+        pad = _inf_like(torch.empty(R, k * _SUM_NT - C, 3, 8, device=pts.device),
+                        curve)
+        pts = torch.cat([pts, pad], 1)
+    pts = pts.reshape(R, k, _SUM_NT, 3, 8)
+    part = _inf_like(pts[:, 0], curve)
+    for i in range(k):
+        part = pt_add(part, pts[:, i], curve)
+    s = _SUM_NT // 2
+    while s:
+        part = torch.cat([pt_add(part[:, :s], part[:, s : 2 * s], curve),
+                          part[:, s:]], 1)
+        s //= 2
+    return part[:, 0].contiguous()
+
+
+def comb_rows_plain(scalars: torch.Tensor, table: torch.Tensor,
+                    curve: CurveSpec) -> torch.Tensor:
+    """Plain version of ``comb_rows``."""
+    R, C = scalars.shape[:2]
+    n_win = table.shape[0]
+    d = scalar_digits(scalars, n_win)  # (n_win, R, C)
+    col = torch.arange(C, device=scalars.device)
+    acc = _inf_like(torch.empty(R, C, 3, 8, device=scalars.device), curve)
+    for w in range(n_win):
+        acc = pt_add(acc, table[w][d[w], col], curve)
+    return row_sum_plain(acc, curve)
+
+
+def comb_rows(scalars: torch.Tensor, table: torch.Tensor,
+              curve: CurveSpec) -> torch.Tensor:
+    """(R, C, 8) canonical scalars -> (R, 3, 8) Jacobian row sums
+    sum_j scalars[r, j] * G_j (scalars below 2^(6 n_win))."""
+    if scalars.device.type == "cpu":
+        return comb_rows_plain(scalars, table, curve)
+    check_cuda(scalars, table)
+    R, C = scalars.shape[:2]
+    if (scalars.shape != (R, C, 8) or table.dim() != 5
+            or table.shape[1:] != (DIGITS, C, 3, 8)):
+        raise ValueError("comb_rows: scalars (R, C, 8) and a (n_win, 64, C, 3, 8) table")
+    scratch = torch.empty(R, C, 3, 8, dtype=torch.int32, device=scalars.device)
+    out = torch.empty(R, 3, 8, dtype=torch.int32, device=scalars.device)
+    if R:
+        COMB.call("sp2_comb_rows", R, C, table.shape[0], scalars.data_ptr(),
+                  table.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                  curve_words(curve))
+    return out
+
+
+class FixedBaseComb:
+    """Comb tables over one static generator vector, on one device."""
+
+    def __init__(self, curve: CurveSpec, gens: list, nbits: int, device):
+        self.curve = curve
+        self.C = len(gens)
+        self.n_win = n_windows(nbits)
+        gx = to_device([g[0] for g in gens], curve.base, device, mont=True)
+        gy = to_device([g[1] for g in gens], curve.base, device, mont=True)
+        self.table = comb_build(gx, gy, self.n_win, curve)
+
+    def rows_msm(self, scalars: torch.Tensor) -> torch.Tensor:
+        """(R, C, 8) canonical scalars -> (R, 3, 8) Jacobian row sums."""
+        return comb_rows(scalars, self.table, self.curve)
+

@@ -1,0 +1,376 @@
+"""SpartanSNARK (non-ZK): setup / prep_prove / prove / verify.
+
+Reference: src/spartan.rs; the protocol, transcript labels, absorb order
+and order of random draws are the JAX package's (spartan2_tpu/snark/
+spartan.py), so with the same blinds the proof bytes are equal.
+
+The prover keeps the bulk data on the keys' device: witness commits on
+the comb MSM (kernel 3), Az/Bz/Cz and poly_ABC on the SpMV (kernel 1),
+both sum-checks on kernel 2 with the transcript on the host between
+rounds, and the PCS L-fold on kernel 4.  Each round pulls only its 2 or
+3 evaluations, so the host work per proof is O(rounds) scalars plus the
+witness synthesis.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from ..errors import DivisionByZeroError, IncorrectWitnessError, ProofVerifyError
+from ..field.limbs import to_device
+from ..frontend.constraint_system import ConstraintSystem
+from ..pcs.hyrax import HyraxBlind, HyraxCommitment, HyraxEvaluationArgument
+from ..polys.eq import eq_evaluate
+from ..polys.multilinear import sparse_poly_evaluate_host
+from ..provider.engines import Engine
+from ..r1cs.shape import R1CSWitness, SplitR1CSInstance, SplitR1CSShape
+from ..sumcheck.prove import prove_cubic_eq, prove_quad
+from ..sumcheck.verify import SumcheckProof
+from ..transcript.transcript import Transcript
+from ..utils.digest import vk_digest
+from ..utils.tracing import span
+
+
+def _log2(n: int) -> int:
+    assert n & (n - 1) == 0 and n > 0
+    return n.bit_length() - 1
+
+
+# ---------------------------------------------------------------------------
+# keys / prep state / proof
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SpartanProverKey:
+    engine: Engine
+    S: SplitR1CSShape
+    ck: object
+    ck_s: object
+    vk_digest: bytes
+
+    @property
+    def device(self) -> torch.device:
+        return self.S.dev["device"]
+
+
+@dataclass
+class SpartanVerifierKey:
+    engine: Engine
+    S: SplitR1CSShape
+    vk_ee: object  # Hyrax verifier key (same generators as ck)
+    ck_s: object
+    digest: bytes
+
+
+@dataclass
+class PrecommittedState:
+    """bellpepper/r1cs.rs:290-301: witness prefix + partial commitments."""
+
+    cs: ConstraintSystem
+    shared: list
+    precommitted: list
+    W: list  # host ints, length num_vars (padded layout)
+    comm_W_shared: Optional[HyraxCommitment] = None
+    r_W_shared: Optional[HyraxBlind] = None
+    comm_W_precommitted: Optional[HyraxCommitment] = None
+    r_W_precommitted: Optional[HyraxBlind] = None
+    # device copy of the static shared + precommitted witness (Montgomery)
+    W_prefix: Optional[torch.Tensor] = None
+    # cached prefix Az/Bz/Cz products, (3, num_cons, 8) (spartan.rs:176-216)
+    matvec_cache: Optional[torch.Tensor] = None
+
+
+@dataclass
+class SpartanPrepSNARK:
+    ps: PrecommittedState
+
+
+@dataclass
+class SpartanSNARKProof:
+    U: SplitR1CSInstance
+    sc_proof_outer: SumcheckProof
+    claims_outer: tuple  # (Az, Bz, Cz) at r_x
+    sc_proof_inner: SumcheckProof
+    eval_W: int
+    blind_eval_W: HyraxBlind  # non-ZK: the blind is sent (spartan.rs:136)
+    eval_arg: HyraxEvaluationArgument
+
+
+# ---------------------------------------------------------------------------
+# witness machinery (bellpepper/r1cs.rs SpartanWitness equivalents)
+# ---------------------------------------------------------------------------
+
+
+def _upload_mont(engine: Engine, vals: list[int], device) -> torch.Tensor:
+    return to_device(vals, engine.scalar, device, mont=True)
+
+
+def shared_witness(engine: Engine, S: SplitR1CSShape, ck, circuit,
+                   is_small: bool, rng=None) -> PrecommittedState:
+    """bellpepper/r1cs.rs:306-357."""
+    cs = ConstraintSystem(engine.scalar, shape_mode=False)
+    W = [0] * S.num_vars
+    shared = circuit.shared(cs)
+    if len(cs.aux_assignment) < S.num_shared_unpadded:
+        raise IncorrectWitnessError("shared variables not allocated correctly")
+    W[: S.num_shared_unpadded] = cs.aux_assignment[: S.num_shared_unpadded]
+    comm = blind = None
+    if S.num_shared_unpadded > 0:
+        blind = engine.pcs.blind(ck, S.num_shared, rng=rng)
+        comm = engine.pcs.commit(ck, W[: S.num_shared], blind, is_small)
+    return PrecommittedState(cs=cs, shared=shared, precommitted=[], W=W,
+                             comm_W_shared=comm, r_W_shared=blind)
+
+
+def precommitted_witness(engine: Engine, ps: PrecommittedState,
+                         S: SplitR1CSShape, ck, circuit, is_small: bool,
+                         rng=None) -> None:
+    """bellpepper/r1cs.rs:359-409."""
+    precommitted = circuit.precommitted(ps.cs, ps.shared)
+    aux = ps.cs.aux_assignment
+    lo = S.num_shared_unpadded
+    if len(aux) - lo < S.num_precommitted_unpadded:
+        raise IncorrectWitnessError("precommitted variables not allocated correctly")
+    ps.W[S.num_shared : S.num_shared + S.num_precommitted_unpadded] = aux[
+        lo : lo + S.num_precommitted_unpadded]
+    if S.num_precommitted_unpadded > 0:
+        blind = engine.pcs.blind(ck, S.num_precommitted, rng=rng)
+        seg = ps.W[S.num_shared : S.num_shared + S.num_precommitted]
+        ps.comm_W_precommitted = engine.pcs.commit(ck, seg, blind, is_small)
+        ps.r_W_precommitted = blind
+    ps.precommitted = precommitted
+
+
+def cache_prefix(S: SplitR1CSShape, engine: Engine, ps: PrecommittedState) -> None:
+    """Upload the witness prefix and cache its Az/Bz/Cz products, so every
+    prove runs only the suffix SpMV (reference prep caching,
+    spartan.rs:176-216 + r1cs/mod.rs:1112-1211)."""
+    lo = S.num_shared + S.num_precommitted
+    if 0 < lo < S.num_cols:
+        ps.W_prefix = _upload_mont(engine, ps.W[:lo], S.dev["device"])
+        ps.matvec_cache = S.multiply_vec_precommitted(ps.W_prefix)
+
+
+def r1cs_instance_and_witness(engine: Engine, ps: PrecommittedState,
+                              S: SplitR1CSShape, ck, circuit, is_small: bool,
+                              transcript: Transcript, rng=None):
+    """bellpepper/r1cs.rs:411-537: absorb partial commitments, squeeze
+    challenges, synthesize the rest, commit it."""
+    pcs = engine.pcs
+    device = S.dev["device"]
+    if ps.comm_W_shared is not None:
+        transcript.absorb_bytes(b"comm_W_shared",
+                                ps.comm_W_shared.to_transcript_bytes(engine.curve))
+    if ps.comm_W_precommitted is not None:
+        transcript.absorb_bytes(
+            b"comm_W_precommitted",
+            ps.comm_W_precommitted.to_transcript_bytes(engine.curve))
+    challenges = [transcript.squeeze(b"challenge") for _ in range(S.num_challenges)]
+
+    skip_synthesize = S.num_rest_unpadded == 0 and not challenges
+    lo = S.num_shared + S.num_precommitted
+    if not skip_synthesize:
+        prep_aux = S.num_shared_unpadded + S.num_precommitted_unpadded
+        del ps.cs.aux_assignment[prep_aux:]
+        del ps.cs.input_assignment[1:]
+        circuit.synthesize(ps.cs, ps.shared, ps.precommitted,
+                           challenges if challenges else None)
+        ps.W[lo : lo + S.num_rest_unpadded] = ps.cs.aux_assignment[
+            prep_aux : prep_aux + S.num_rest_unpadded]
+
+    r_W_rest = pcs.blind(ck, S.num_rest, rng=rng)
+    if lo and ps.W_prefix is None:
+        ps.W_prefix = _upload_mont(engine, ps.W[:lo], device)
+    if skip_synthesize:
+        public_values = circuit.public_values()
+    else:
+        public_values = ps.cs.input_assignment[1 : 1 + S.num_public]
+
+    rest = ps.W[lo : lo + S.num_rest]
+    if S.num_rest_unpadded == 0:
+        with span("commit_rest_zeros"):
+            comm_W_rest = pcs.commit_zeros(ck, S.num_rest, r_W_rest)
+        rest_mont = torch.zeros(S.num_rest, 8, dtype=torch.int32, device=device)
+    else:
+        actual_small = is_small or all(
+            v < (1 << 64) for v in ps.W[lo : lo + S.num_rest_unpadded])
+        with span("commit_rest"):
+            comm_W_rest = pcs.commit(ck, rest, r_W_rest, actual_small)
+        rest_mont = _upload_mont(engine, rest, device)
+
+    transcript.absorb_bytes(b"comm_W_rest", comm_W_rest.to_transcript_bytes(engine.curve))
+    U = SplitR1CSInstance(
+        comm_W_shared=ps.comm_W_shared,
+        comm_W_precommitted=ps.comm_W_precommitted,
+        comm_W_rest=comm_W_rest,
+        public_values=public_values,
+        challenges=challenges,
+    )
+    blinds = [b for b in (ps.r_W_shared, ps.r_W_precommitted) if b is not None]
+    blinds.append(r_W_rest)
+    W_dev = torch.cat([ps.W_prefix, rest_mont]) if lo else rest_mont
+    W = R1CSWitness(W=W_dev, r_W=pcs.combine_blinds(blinds))
+    return U, W
+
+
+# ---------------------------------------------------------------------------
+# SNARK
+# ---------------------------------------------------------------------------
+
+
+class SpartanSNARK:
+    """R1CSSNARKTrait equivalent (traits/snark.rs:15-51)."""
+
+    @staticmethod
+    def setup(engine: Engine, circuit, width: int = 2048, device="cuda"):
+        """Keys whose device state (matrices, comb tables) lives on
+        ``device``."""
+        with span("setup_shape"):
+            S = SplitR1CSShape.from_circuit(circuit, engine.scalar, width)
+        with span("setup_upload"):
+            S.attach_device(device)
+        with span("setup_generators"):
+            ck, vk_ee = engine.pcs.setup(b"ck", S.num_vars, width, device)
+            ck_s, _ = engine.pcs.setup(b"ck_s", 1, 1, device)
+        with span("setup_digest"):
+            digest = vk_digest(S, ck, ck_s)
+        return (SpartanProverKey(engine, S, ck, ck_s, digest),
+                SpartanVerifierKey(engine, S, vk_ee, ck_s, digest))
+
+    @staticmethod
+    def prep_prove(pk: SpartanProverKey, circuit, is_small: bool = False,
+                   rng=None) -> SpartanPrepSNARK:
+        with span("prep_synthesize_commit"):
+            ps = shared_witness(pk.engine, pk.S, pk.ck, circuit, is_small, rng)
+            precommitted_witness(pk.engine, ps, pk.S, pk.ck, circuit, is_small, rng)
+        with span("prep_matvec_cache"):
+            cache_prefix(pk.S, pk.engine, ps)
+        return SpartanPrepSNARK(ps=ps)
+
+    @staticmethod
+    def prove(pk: SpartanProverKey, circuit, prep: SpartanPrepSNARK,
+              is_small: bool = False, rng=None):
+        engine = pk.engine
+        S = pk.S
+        F = engine.scalar
+        p = F.modulus
+        device = pk.device
+
+        transcript = engine.transcript(b"SpartanSNARK")
+        transcript.absorb_bytes(b"vk", pk.vk_digest)
+        public_values = circuit.public_values()
+        transcript.absorb_scalars(b"public_values", public_values)
+
+        with span("witness_and_instance"):
+            U, W = r1cs_instance_and_witness(engine, prep.ps, S, pk.ck, circuit,
+                                             is_small, transcript, rng)
+
+        num_vars = S.num_vars
+        tail = _upload_mont(engine, [1] + U.public_values + U.challenges, device)
+        z = torch.cat([W.W, tail])  # (num_cols, 8)
+        num_rounds_x = _log2(S.num_cons)
+        num_rounds_y = _log2(num_vars) + 1
+        taus = [transcript.squeeze(b"t") for _ in range(num_rounds_x)]
+
+        with span("matrix_vector_multiply"):
+            if prep.ps.matvec_cache is not None:
+                ABC = S.multiply_vec_incremental(z, prep.ps.matvec_cache)
+            else:
+                ABC = S.multiply_vec(z)
+
+        with span("outer_sumcheck"):
+            sc_proof_outer, r_x, claims = prove_cubic_eq(
+                transcript, taus, ABC[0], ABC[1], ABC[2], F)
+        claim_Az, claim_Bz, claim_Cz = claims
+        transcript.absorb_scalars(b"claims_outer", [claim_Az, claim_Bz, claim_Cz])
+
+        r = transcript.squeeze(b"r")
+        claim_inner = (claim_Az + r * claim_Bz + r * r * claim_Cz) % p
+        with span("prepare_poly_ABC"):
+            abc = S.bind_and_prepare_poly_ABC(r_x, r)
+        with span("inner_sumcheck"):
+            # the 2 * num_vars inner domain: abc is zero past num_cols and
+            # z = (W, 1, public, challenges, 0, ...)
+            n_in = 2 * num_vars
+            A_in = torch.zeros(n_in, 8, dtype=torch.int32, device=device)
+            A_in[: S.num_cols] = abc
+            Z_in = torch.zeros(n_in, 8, dtype=torch.int32, device=device)
+            Z_in[: S.num_cols] = z
+            sc_proof_inner, r_y, finals = prove_quad(transcript, claim_inner,
+                                                     A_in, Z_in, F)
+        eval_Z = finals[1]
+
+        # eval_W = (eval_Z - r_y[0] * eval_X) / (1 - r_y[0])   (Z = (W, 1, X))
+        X = U.public_values + U.challenges
+        eval_X = sparse_poly_evaluate_host(F, num_rounds_y - 1, [1] + X, r_y[1:])
+        denom = (1 - r_y[0]) % p
+        if denom == 0:
+            raise DivisionByZeroError("division by zero in eval_W")
+        eval_W = (eval_Z - r_y[0] * eval_X) * pow(denom, -1, p) % p
+
+        blind_eval_W = engine.pcs.blind(pk.ck_s, 1, rng=rng)
+        comm_eval_W = engine.pcs.commit_host(pk.ck_s, [eval_W], blind_eval_W)
+        comm_W, _ = U.to_regular(engine.pcs)
+        with span("pcs_prove"):
+            eval_arg = engine.pcs.prove(pk.ck, pk.ck_s, transcript, comm_W, W.W,
+                                        W.r_W, r_y[1:], comm_eval_W, blind_eval_W,
+                                        rng=rng)
+        proof = SpartanSNARKProof(
+            U=U, sc_proof_outer=sc_proof_outer,
+            claims_outer=(claim_Az, claim_Bz, claim_Cz),
+            sc_proof_inner=sc_proof_inner, eval_W=eval_W,
+            blind_eval_W=blind_eval_W, eval_arg=eval_arg)
+        return proof, prep
+
+    @staticmethod
+    def verify(proof: SpartanSNARKProof, vk: SpartanVerifierKey) -> list[int]:
+        """Reference verify (spartan.rs:469-578); the MLE evaluation of A, B
+        and C runs on the key's device."""
+        engine = vk.engine
+        S = vk.S
+        p = engine.scalar.modulus
+        transcript = engine.transcript(b"SpartanSNARK")
+        transcript.absorb_bytes(b"vk", vk.digest)
+        transcript.absorb_scalars(b"public_values", proof.U.public_values)
+
+        proof.U.validate(S, engine.pcs, transcript)
+        comm_W, X = proof.U.to_regular(engine.pcs)
+
+        num_vars = S.num_vars
+        num_rounds_x = _log2(S.num_cons)
+        num_rounds_y = _log2(num_vars) + 1
+        taus = [transcript.squeeze(b"t") for _ in range(num_rounds_x)]
+
+        claim_outer_final, r_x = proof.sc_proof_outer.verify(0, num_rounds_x, 3,
+                                                             transcript)
+        claim_Az, claim_Bz, claim_Cz = proof.claims_outer
+        taus_bound_rx = eq_evaluate(engine.scalar, taus, r_x)
+        expected = taus_bound_rx * (claim_Az * claim_Bz - claim_Cz) % p
+        if claim_outer_final % p != expected:
+            raise ProofVerifyError("invalid outer sum-check claim")
+
+        transcript.absorb_scalars(b"claims_outer", [claim_Az, claim_Bz, claim_Cz])
+        r = transcript.squeeze(b"r")
+        claim_inner = (claim_Az + r * claim_Bz + r * r * claim_Cz) % p
+        claim_inner_final, r_y = proof.sc_proof_inner.verify(claim_inner,
+                                                             num_rounds_y, 2,
+                                                             transcript)
+        eval_X = sparse_poly_evaluate_host(engine.scalar, num_rounds_y - 1,
+                                           [1] + X, r_y[1:])
+        eval_Z = ((1 - r_y[0]) * proof.eval_W + r_y[0] * eval_X) % p
+        with span("verify_evaluate_ABC"):
+            eval_A, eval_B, eval_C = S.evaluate_at(r_x, r_y)
+        expected_inner = (eval_A + r * eval_B + r * r * eval_C) * eval_Z % p
+        if claim_inner_final % p != expected_inner:
+            raise ProofVerifyError("invalid inner sum-check claim")
+
+        comm_eval_W = engine.pcs.commit_host(vk.ck_s, [proof.eval_W],
+                                             proof.blind_eval_W)
+        with span("verify_pcs"):
+            engine.pcs.verify(vk.vk_ee, vk.ck_s, transcript, comm_W, r_y[1:],
+                              comm_eval_W, proof.eval_arg)
+        return list(proof.U.public_values)

@@ -1,0 +1,327 @@
+"""Deterministic binary serialization for proofs, keys and prep state.
+
+The same bincode-like codec as the JAX package (spartan2_tpu/utils/
+serde.py): little-endian u64 length prefixes, scalars as 32-byte LE,
+points as 65-byte (x, y, infinity-flag).  The port writes the same bytes
+and reads what the JAX package writes: keys and prep state recorded by
+either load into the other.
+"""
+
+from __future__ import annotations
+
+import struct
+
+from ..errors import SpartanError
+from ..field.constants import FieldSpec
+from ..pcs.hyrax import HyraxBlind, HyraxCommitment, HyraxEvaluationArgument, IpaProof
+from ..polys.univariate import CompressedUniPoly
+from ..sumcheck.verify import SumcheckProof
+
+MAGIC = b"SP2TPU01"
+
+
+class Writer:
+    def __init__(self, field: FieldSpec, curve):
+        self.field = field
+        self.curve = curve
+        self.buf = bytearray(MAGIC)
+
+    def u64(self, v: int):
+        self.buf += struct.pack("<Q", v)
+
+    def scalar(self, v: int):
+        self.buf += self.field.to_bytes(v)
+
+    def scalars(self, vs):
+        self.u64(len(vs))
+        for v in vs:
+            self.scalar(v)
+
+    def point(self, pt):
+        self.buf += self.curve.point_bytes(pt)
+
+    def commitment(self, c: HyraxCommitment):
+        self.u64(len(c.comm))
+        for pt in c.comm:
+            self.point(pt)
+
+    def opt_commitment(self, c):
+        self.buf += b"\x01" if c is not None else b"\x00"
+        if c is not None:
+            self.commitment(c)
+
+    def blind(self, b: HyraxBlind):
+        self.scalars(b.blind)
+
+    def sumcheck(self, proof: SumcheckProof):
+        self.u64(len(proof.compressed_polys))
+        for cp in proof.compressed_polys:
+            self.scalars(cp.coeffs_except_linear)
+
+    def ipa(self, ipa: IpaProof):
+        self.point(ipa.delta)
+        self.point(ipa.beta)
+        self.scalars(ipa.z_vec)
+        self.scalar(ipa.z_delta)
+        self.scalar(ipa.z_beta)
+
+    def bytes_out(self) -> bytes:
+        return bytes(self.buf)
+
+
+class Reader:
+    def __init__(self, field: FieldSpec, curve, data: bytes):
+        if data[:8] != MAGIC:
+            raise SpartanError("bad magic in serialized object")
+        self.field = field
+        self.curve = curve
+        self.data = data
+        self.pos = 8
+
+    def take(self, n: int) -> bytes:
+        out = self.data[self.pos : self.pos + n]
+        if len(out) != n:
+            raise SpartanError("truncated serialized object")
+        self.pos += n
+        return out
+
+    def u64(self) -> int:
+        return struct.unpack("<Q", self.take(8))[0]
+
+    def scalar(self) -> int:
+        return self.field.from_bytes(self.take(32))
+
+    def scalars(self) -> list[int]:
+        return [self.scalar() for _ in range(self.u64())]
+
+    def point(self):
+        return self.curve.point_from_bytes(self.take(65))
+
+    def commitment(self) -> HyraxCommitment:
+        return HyraxCommitment([self.point() for _ in range(self.u64())])
+
+    def opt_commitment(self):
+        return self.commitment() if self.take(1) == b"\x01" else None
+
+    def blind(self) -> HyraxBlind:
+        return HyraxBlind(self.scalars())
+
+    def sumcheck(self) -> SumcheckProof:
+        n = self.u64()
+        return SumcheckProof(
+            self.field,
+            [CompressedUniPoly(self.field, self.scalars()) for _ in range(n)],
+        )
+
+    def ipa(self) -> IpaProof:
+        return IpaProof(self.point(), self.point(), self.scalars(),
+                        self.scalar(), self.scalar())
+
+    def done(self):
+        if self.pos != len(self.data):
+            raise SpartanError("trailing bytes in serialized object")
+
+
+# ---------------------------------------------------------------------------
+# proofs
+# ---------------------------------------------------------------------------
+
+
+def _write_split_instance(w: Writer, U):
+    w.opt_commitment(U.comm_W_shared)
+    w.opt_commitment(U.comm_W_precommitted)
+    w.commitment(U.comm_W_rest)
+    w.scalars(U.public_values)
+    w.scalars(U.challenges)
+
+
+def _read_split_instance(r: Reader):
+    from ..r1cs.shape import SplitR1CSInstance
+
+    return SplitR1CSInstance(
+        comm_W_shared=r.opt_commitment(),
+        comm_W_precommitted=r.opt_commitment(),
+        comm_W_rest=r.commitment(),
+        public_values=r.scalars(),
+        challenges=r.scalars(),
+    )
+
+
+def spartan_proof_to_bytes(proof, engine) -> bytes:
+    w = Writer(engine.scalar, engine.curve)
+    _write_split_instance(w, proof.U)
+    w.sumcheck(proof.sc_proof_outer)
+    w.scalars(list(proof.claims_outer))
+    w.sumcheck(proof.sc_proof_inner)
+    w.scalar(proof.eval_W)
+    w.blind(proof.blind_eval_W)
+    w.ipa(proof.eval_arg.ipa)
+    return w.bytes_out()
+
+
+def spartan_proof_from_bytes(data: bytes, engine):
+    from ..snark.spartan import SpartanSNARKProof
+
+    r = Reader(engine.scalar, engine.curve, data)
+    U = _read_split_instance(r)
+    outer = r.sumcheck()
+    claims = tuple(r.scalars())
+    inner = r.sumcheck()
+    eval_W = r.scalar()
+    blind = r.blind()
+    ipa = r.ipa()
+    r.done()
+    return SpartanSNARKProof(U=U, sc_proof_outer=outer, claims_outer=claims,
+                             sc_proof_inner=inner, eval_W=eval_W,
+                             blind_eval_W=blind,
+                             eval_arg=HyraxEvaluationArgument(ipa))
+
+
+# ---------------------------------------------------------------------------
+# keys / prep (checkpoint & resume; reference spartan.rs:42-124 derives
+# Serialize on ProverKey/VerifierKey/PrepSNARK)
+# ---------------------------------------------------------------------------
+
+
+def _write_sparse_matrix(w: Writer, M):
+    w.u64(M.cols)
+    w.u64(len(M.indptr))
+    for v in M.indptr:
+        w.u64(v)
+    w.u64(len(M.data))
+    for v in M.data:
+        w.scalar(v)
+    for c in M.indices:
+        w.u64(c)
+
+
+def _read_sparse_matrix(r: Reader):
+    from ..r1cs.sparse import SparseMatrix
+
+    cols = r.u64()
+    indptr = [r.u64() for _ in range(r.u64())]
+    nnz = r.u64()
+    data = [r.scalar() for _ in range(nnz)]
+    indices = [r.u64() for _ in range(nnz)]
+    return SparseMatrix(r.field, data, indices, indptr, cols)
+
+
+_SHAPE_NUMS = (
+    "num_cons", "num_cons_unpadded", "num_shared", "num_shared_unpadded",
+    "num_precommitted", "num_precommitted_unpadded", "num_rest",
+    "num_rest_unpadded", "num_public", "num_challenges", "width",
+)
+
+
+def _write_shape(w: Writer, S):
+    for name in _SHAPE_NUMS:
+        w.u64(getattr(S, name))
+    _write_sparse_matrix(w, S.A)
+    _write_sparse_matrix(w, S.B)
+    _write_sparse_matrix(w, S.C)
+
+
+def _read_shape(r: Reader):
+    """Rebuild a SplitR1CSShape in its already-padded form (the
+    constructor re-pads raw inputs, so bypass it)."""
+    from ..r1cs.shape import SplitR1CSShape
+
+    S = SplitR1CSShape.__new__(SplitR1CSShape)
+    S.field = r.field
+    for name in _SHAPE_NUMS:
+        setattr(S, name, r.u64())
+    S.A = _read_sparse_matrix(r)
+    S.B = _read_sparse_matrix(r)
+    S.C = _read_sparse_matrix(r)
+    S.dev = None
+    return S
+
+
+def spartan_keys_to_bytes(pk) -> bytes:
+    """Serialize the prover key; the verifier key shares every field
+    (generators re-derive deterministically from their labels)."""
+    engine = pk.engine
+    w = Writer(engine.scalar, engine.curve)
+    _write_shape(w, pk.S)
+    w.buf += pk.vk_digest
+    return w.bytes_out()
+
+
+def spartan_keys_from_bytes(data: bytes, engine, device="cuda"):
+    """-> (SpartanProverKey, SpartanVerifierKey) with device state on
+    ``device``; the generators re-derive from their labels."""
+    from ..snark.spartan import SpartanProverKey, SpartanVerifierKey
+
+    r = Reader(engine.scalar, engine.curve, data)
+    S = _read_shape(r)
+    digest = r.take(32)
+    r.done()
+    S.attach_device(device)
+    ck, vk_ee = engine.pcs.setup(b"ck", S.num_vars, S.width, device)
+    ck_s, _ = engine.pcs.setup(b"ck_s", 1, 1, device)
+    pk = SpartanProverKey(engine, S, ck, ck_s, digest)
+    vk = SpartanVerifierKey(engine, S, vk_ee, ck_s, digest)
+    return pk, vk
+
+
+def _opt_blind(w: Writer, b):
+    w.buf += b"\x01" if b is not None else b"\x00"
+    if b is not None:
+        w.blind(b)
+
+
+def _read_opt_blind(r: Reader):
+    return r.blind() if r.take(1) == b"\x01" else None
+
+
+def spartan_prep_to_bytes(prep, engine) -> bytes:
+    """Serialize a SpartanPrepSNARK: witness prefix values, partial
+    commitments and blinds, and the constraint-system assignments.
+    Device-side caches (limb planes, prefix mat-vec products) are
+    deterministic and rebuilt on load."""
+    ps = prep.ps
+    w = Writer(engine.scalar, engine.curve)
+    w.scalars(ps.W)
+    w.opt_commitment(ps.comm_W_shared)
+    _opt_blind(w, ps.r_W_shared)
+    w.opt_commitment(ps.comm_W_precommitted)
+    _opt_blind(w, ps.r_W_precommitted)
+    w.u64(ps.cs.num_aux)
+    w.scalars(ps.cs.aux_assignment)
+    w.scalars(ps.cs.input_assignment)
+    return w.bytes_out()
+
+
+def spartan_prep_from_bytes(data: bytes, engine, pk, circuit):
+    """Reload a SpartanPrepSNARK.  ``circuit`` re-synthesizes the
+    shared/precommitted variable handles (deterministic, cheap host
+    work); the expensive commitments come from the serialized state."""
+    from ..frontend.constraint_system import ConstraintSystem
+    from ..snark.spartan import PrecommittedState, SpartanPrepSNARK, cache_prefix
+
+    r = Reader(engine.scalar, engine.curve, data)
+    W = r.scalars()
+    comm_s = r.opt_commitment()
+    blind_s = _read_opt_blind(r)
+    comm_p = r.opt_commitment()
+    blind_p = _read_opt_blind(r)
+    num_aux = r.u64()
+    aux = r.scalars()
+    inputs = r.scalars()
+    r.done()
+
+    cs = ConstraintSystem(engine.scalar, shape_mode=False)
+    shared = circuit.shared(cs)
+    precommitted = circuit.precommitted(cs, shared)
+    cs.num_aux = num_aux
+    cs.aux_assignment = aux
+    cs.input_assignment = inputs
+
+    ps = PrecommittedState(
+        cs=cs, shared=shared, precommitted=precommitted, W=W,
+        comm_W_shared=comm_s, r_W_shared=blind_s,
+        comm_W_precommitted=comm_p, r_W_precommitted=blind_p,
+    )
+    # rebuild the deterministic device caches (mirrors prep_prove)
+    cache_prefix(pk.S, engine, ps)
+    return SpartanPrepSNARK(ps=ps)

@@ -16,3 +16,8 @@ if "xla_force_host_platform_device_count" not in flags:
     ).strip()
 
 import spartan2_tpu  # noqa: F401  (enables the persistent compile cache)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "slow: runs for tens of minutes; deselect with -m 'not slow'")

@@ -1,0 +1,59 @@
+"""The port imports neither JAX nor the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == m or name.startswith(m + ".") for m in ("jax", "spartan2_tpu"))
+
+
+def test_no_jax_imports_in_port_sources():
+    files = sorted((ROOT / "spartan2_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{f.relative_to(ROOT)}: {n}" for n in names if _forbidden(n)]
+    assert bad == []
+
+
+def test_cubic_prove_runs_without_jax_or_kernels():
+    code = """
+import sys
+from spartan2_tpu_torch.provider.engines import get_engine
+from spartan2_tpu_torch.snark.spartan import SpartanSNARK
+from tests.torch_helpers import CubicCircuit, det
+engine, circuit = get_engine("P256HyraxEngine"), CubicCircuit()
+pk, vk = SpartanSNARK.setup(engine, circuit, width=4, device="cpu")
+prep = SpartanSNARK.prep_prove(pk, circuit, rng=det(1))
+proof, _ = SpartanSNARK.prove(pk, circuit, prep, rng=det(2))
+assert SpartanSNARK.verify(proof, vk) == [15]
+loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+          or m == "spartan2_tpu" or m.startswith("spartan2_tpu.")]
+assert not loaded, loaded
+# CPU tensors ran the plain versions: no kernel was built or launched
+from spartan2_tpu_torch.ec.comb import COMB
+from spartan2_tpu_torch.pcs.hyrax import HYRAX_BIND
+from spartan2_tpu_torch.r1cs.sparse import SPMV
+from spartan2_tpu_torch.sumcheck.device import SUMCHECK
+for k in (SPMV, SUMCHECK, COMB, HYRAX_BIND):
+    assert k.launches == 0 and k._lib is None, k.name
+print("isolated")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "isolated" in out.stdout

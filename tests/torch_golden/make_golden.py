@@ -1,0 +1,129 @@
+"""Record a JAX reference run of SpartanSNARK on the cubic circuit.
+
+The port's byte-identity test (tests/test_torch_spartan.py) loads the
+keys and the prep state written here, proves with the port from the same
+seeds, and compares its serialized proof with the JAX proof stored here.
+A JAX prove compiles its device programs on XLA:CPU for tens of minutes,
+so the reference side is recorded once and committed.
+
+Run from the repository root:
+
+    JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden
+
+The committed ``cubic_p256.bin`` was recorded with the JAX package of
+commit 4cf6d4bc4a04b6b518ace38bd3ac5e0ff6d2cd09.
+
+File layout (all integers u64 little-endian):
+    b"SP2GOLD1", width, prep_seed, prove_seed,
+    then three length-prefixed blobs: key bytes, prep bytes, proof bytes.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import struct
+import sys
+import time
+
+MAGIC = b"SP2GOLD1"
+WIDTH = 4
+PREP_SEED = 1
+PROVE_SEED = 2
+OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cubic_p256.bin")
+
+
+def det(seed: int):
+    """bench.py's deterministic blind source: rng(q) -> int in [0, q)."""
+    r = random.Random(seed)
+    return lambda q: r.randrange(q)
+
+
+def write_golden(path: str, keys: bytes, prep: bytes, proof: bytes) -> None:
+    out = bytearray(MAGIC)
+    out += struct.pack("<QQQ", WIDTH, PREP_SEED, PROVE_SEED)
+    for blob in (keys, prep, proof):
+        out += struct.pack("<Q", len(blob)) + blob
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+def read_golden(path: str = OUT) -> dict:
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != MAGIC:
+        raise ValueError("not a golden file")
+    width, prep_seed, prove_seed = struct.unpack_from("<QQQ", data, 8)
+    pos = 32
+    blobs = []
+    for _ in range(3):
+        (n,) = struct.unpack_from("<Q", data, pos)
+        blobs.append(data[pos + 8 : pos + 8 + n])
+        pos += 8 + n
+    if pos != len(data):
+        raise ValueError("trailing bytes in golden file")
+    return {"width": width, "prep_seed": prep_seed, "prove_seed": prove_seed,
+            "keys": blobs[0], "prep": blobs[1], "proof": blobs[2]}
+
+
+def jax_cubic_circuit():
+    """x^3 + x + 5 = y with y = 15 public, on the JAX frontend."""
+    from spartan2_tpu.frontend.constraint_system import ONE, Num, lc
+
+    class CubicCircuit:
+        def public_values(self):
+            return [15]
+
+        def shared(self, cs):
+            return []
+
+        def precommitted(self, cs, shared):
+            return []
+
+        def num_challenges(self):
+            return 0
+
+        def synthesize(self, cs, shared, precommitted, challenges):
+            x = Num.alloc(cs, 2)
+            x_sq = x.square(cs)
+            x_cu = x_sq.mul(cs, x)
+            y = Num.alloc(cs, None if cs.shape_mode
+                          else (x_cu.value + x.value + 5) % cs.field.modulus)
+            cs.enforce(lc((1, x_cu.var), (1, x.var), (5, ONE)), lc((1, ONE)),
+                       lc((1, y.var)))
+            y.inputize(cs)
+
+    return CubicCircuit()
+
+
+def jax_prove() -> tuple[bytes, bytes, bytes]:
+    """JAX setup, prep_prove and prove from the fixed seeds."""
+    from spartan2_tpu.provider.engines import get_engine
+    from spartan2_tpu.snark.spartan import SpartanSNARK
+    from spartan2_tpu.utils.serde import (
+        spartan_keys_to_bytes,
+        spartan_prep_to_bytes,
+        spartan_proof_to_bytes,
+    )
+
+    engine = get_engine("P256HyraxEngine")
+    circuit = jax_cubic_circuit()
+    pk, _ = SpartanSNARK.setup(engine, circuit, width=WIDTH)
+    prep = SpartanSNARK.prep_prove(pk, circuit, rng=det(PREP_SEED))
+    keys = spartan_keys_to_bytes(pk)
+    prep_b = spartan_prep_to_bytes(prep, engine)
+    proof, _ = SpartanSNARK.prove(pk, circuit, prep, rng=det(PROVE_SEED))
+    return keys, prep_b, spartan_proof_to_bytes(proof, engine)
+
+
+def main() -> int:
+    t0 = time.time()
+    keys, prep, proof = jax_prove()
+    write_golden(OUT, keys, prep, proof)
+    print(f"wrote {OUT}: keys {len(keys)} B, prep {len(prep)} B, "
+          f"proof {len(proof)} B in {time.time() - t0:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

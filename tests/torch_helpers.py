@@ -1,0 +1,49 @@
+"""Shared inputs for the port's tests (tests/test_torch_*.py)."""
+
+import random
+
+import torch
+
+from spartan2_tpu_torch.frontend.constraint_system import ONE, Num, lc
+
+# The suite runs in several worker processes beside XLA:CPU compiles;
+# torch's own thread pool would oversubscribe the cores and stall.
+torch.set_num_threads(1)
+
+
+class CubicCircuit:
+    """x^3 + x + 5 = y with y = 15 public (reference spartan.rs:590-652),
+    written against the port's frontend."""
+
+    def public_values(self):
+        return [15]
+
+    def shared(self, cs):
+        return []
+
+    def precommitted(self, cs, shared):
+        return []
+
+    def num_challenges(self):
+        return 0
+
+    def synthesize(self, cs, shared, precommitted, challenges):
+        x = Num.alloc(cs, 2)
+        x_sq = x.square(cs)
+        x_cu = x_sq.mul(cs, x)
+        y = Num.alloc(cs, None if cs.shape_mode
+                      else (x_cu.value + x.value + 5) % cs.field.modulus)
+        cs.enforce(lc((1, x_cu.var), (1, x.var), (5, ONE)), lc((1, ONE)),
+                   lc((1, y.var)))
+        y.inputize(cs)
+
+
+def det(seed: int):
+    """bench.py's deterministic blind source: rng(q) -> int in [0, q)."""
+    r = random.Random(seed)
+    return lambda q: r.randrange(q)
+
+
+def rand_ints(p: int, n: int, seed: int) -> list[int]:
+    r = random.Random(seed)
+    return [r.randrange(p) for _ in range(n)]
