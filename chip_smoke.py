@@ -2,26 +2,31 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit, builds the five CUDA kernels
+1. Prints the card's name and power limit, builds the five CUDA sources
    from spartan2_tpu_torch/csrc/ (one nvcc per source, in parallel).
-2. Drives the main path: SpartanSNARK setup, prep_prove, a warm-up prove
-   and three timed proves on SHA-256 over a 1 KiB preimage
-   (P256HyraxEngine, Hyrax width 2048, is_small=True), then verifies the
-   proof, checks that a tampered public value is rejected and that the
-   serialized proof is 94324 bytes.  Every kernel's launch count is reset
-   just before setup and read after verify; each must be > 0, and each
-   kernel but the verifier's MSM must be launched by every prove.  A
-   count is of wrapper calls: one C entry call, which may launch more
-   than one __global__ function.
-3. Proves the cubic circuit on the card from the JAX package's recorded
-   keys, prep state and seeds (tests/torch_golden/): the proof must equal
-   the recorded JAX proof byte for byte.
-4. Holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, on inputs from a fixed seed: equality is exact
+2. Drives SpartanSNARK: setup, prep_prove, a warm-up prove and two timed
+   proves on SHA-256 over a 1 KiB preimage (P256HyraxEngine, Hyrax width
+   2048, is_small=True), then verifies the proof, checks that a tampered
+   public value is rejected and that the serialized proof is 94324 bytes.
+3. Drives SpartanZkSNARK on the same circuit, from the same synthesized
+   shape (setup_from_shape): prep_prove, a warm-up prove and three timed
+   proves, verify, a tampered proof rejected, the proof through serde and
+   back.  For each path every kernel's launch count is set to 0 just
+   before its setup and read after its verify; each kernel of the path
+   must have been launched.  A count is of wrapper calls: one C entry
+   call, which may launch more than one __global__ function; the counts
+   are also kept per entry, so kernels A and B (entries of sumcheck.cu)
+   and C (an entry of msm.cu) are counted apart.
+4. Proves the cubic circuit on the card with both SNARKs from the JAX
+   package's recorded keys, prep state and seeds (tests/torch_golden/):
+   each proof must equal the recorded JAX proof byte for byte.
+5. Holds each kernel against its plain PyTorch version on the card, at the
+   main paths' shapes, on inputs from a fixed seed: equality is exact
    (tolerance 0: every output is an integer mod p).  Times kernel and
-   plain version with CUDA events, and computes each kernel's bound from
-   the bytes and 32-bit multiply-adds this run's data needs.
-5. Prints one JSON line with the kernels, then the card, then
+   plain version with CUDA events (no copies inside a timed region), and
+   computes each kernel's bound from the bytes and 32-bit multiply-adds
+   this run's data needs.
+6. Prints one JSON line with the kernels, then the card, then
    {"ok": true, ...} as the last line.  Any failed check raises.
 """
 
@@ -102,28 +107,88 @@ def rand_field(n: int, spec, gen: torch.Generator, device) -> torch.Tensor:
     return x.to(device)
 
 
-def check_golden_cubic(dev) -> None:
+def check_golden_cubic(dev, zk: bool) -> None:
     """Prove the cubic circuit on the card from the JAX package's recorded
     keys, prep state and seeds (tests/torch_golden/); the proof must equal
     the recorded JAX proof byte for byte."""
     from spartan2_tpu_torch.provider.engines import get_engine
-    from spartan2_tpu_torch.snark.spartan import SpartanSNARK
-    from spartan2_tpu_torch.utils.serde import (
-        spartan_keys_from_bytes, spartan_prep_from_bytes, spartan_proof_to_bytes)
-    from tests.torch_golden.make_golden import read_golden
+    from spartan2_tpu_torch.utils import serde
+    from tests.torch_golden.make_golden import OUT, OUT_ZK, read_golden
     from tests.torch_helpers import CubicCircuit
 
-    golden = read_golden()
+    if zk:
+        from spartan2_tpu_torch.snark.spartan_zk import SpartanZkSNARK as snark
+        keys_from_bytes = serde.spartan_zk_keys_from_bytes
+        proof_to_bytes = serde.spartan_zk_proof_to_bytes
+    else:
+        from spartan2_tpu_torch.snark.spartan import SpartanSNARK as snark
+        keys_from_bytes = serde.spartan_keys_from_bytes
+        proof_to_bytes = serde.spartan_proof_to_bytes
+    golden = read_golden(OUT_ZK if zk else OUT)
     engine, circuit = get_engine("P256HyraxEngine"), CubicCircuit()
-    pk, vk = spartan_keys_from_bytes(golden["keys"], engine, device=dev)
-    prep = spartan_prep_from_bytes(golden["prep"], engine, pk, circuit)
-    proof, _ = SpartanSNARK.prove(pk, circuit, prep, rng=det(golden["prove_seed"]))
-    if spartan_proof_to_bytes(proof, engine) != golden["proof"]:
-        raise RuntimeError("cubic proof on the card differs from the JAX proof")
-    if SpartanSNARK.verify(proof, vk) != [15]:
-        raise RuntimeError("cubic proof on the card does not verify")
-    print("cubic circuit on the card: proof equals the recorded JAX proof "
-          f"({len(golden['proof'])} bytes) and verifies", flush=True)
+    pk, vk = keys_from_bytes(golden["keys"], engine, device=dev)
+    prep = serde.spartan_prep_from_bytes(golden["prep"], engine, pk, circuit)
+    proof, _ = snark.prove(pk, circuit, prep, rng=det(golden["prove_seed"]))
+    name = snark.__name__
+    if proof_to_bytes(proof, engine) != golden["proof"]:
+        raise RuntimeError(f"{name}: cubic proof on the card differs from the JAX proof")
+    if snark.verify(proof, vk) != [15]:
+        raise RuntimeError(f"{name}: cubic proof on the card does not verify")
+    print(f"cubic circuit on the card, {name}: proof equals the recorded JAX "
+          f"proof ({len(golden['proof'])} bytes) and verifies", flush=True)
+
+
+NONZK_COUNTS = ("wrapper calls on the SpartanSNARK path: setup, prep_prove, "
+                "three proves, verify")
+
+
+def kernel_record(name, replaces, launches, counts, ms, plain_ms, nbytes, muls,
+                  source=None):
+    """One kernel of the JSON line; its bound from the bytes and Montgomery
+    products the function needs for this run's data."""
+    b, by = bound_ms(nbytes, muls)
+    return {"name": name, "route": "cuda",
+            "source": source or f"spartan2_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches, "counts": counts,
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+            "bound_by": by, "library_ms": None}
+
+
+def detail_record(name, ms, plain_ms, nbytes, muls):
+    b, by = bound_ms(nbytes, muls)
+    return {"name": name, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+            "bound_by": by}
+
+
+def same_or_raise(name, got, want, spec) -> None:
+    """Kernel output ``got`` (tensor or ints) against the plain version's."""
+    from spartan2_tpu_torch.field.limbs import limbs_to_ints
+
+    if isinstance(got, list) and isinstance(want, torch.Tensor):
+        same = got == limbs_to_ints(want, spec, mont=True)
+    elif isinstance(got, torch.Tensor):
+        same = torch.equal(got, want)
+    else:
+        same = got == want
+    if not same:
+        raise RuntimeError(f"{name}: kernel differs from its plain version")
+    print(f"equal to plain: {name}", flush=True)
+
+
+def msm_point_ops(scalars: torch.Tensor, nw: int) -> float:
+    """Montgomery products that MSMs over (rows, I, 8) scalars of ``nw``
+    4-bit windows need: per point 13 additions and a doubling for its 16
+    multiples; per row and window one addition per nonzero digit but the
+    first; below the top window a row's ladder of 4 doublings and one
+    addition per window."""
+    from spartan2_tpu_torch.ec.comb import scalar_digits
+    from spartan2_tpu_torch.ec.msm import MSM_WINDOW_BITS
+
+    rows, n = scalars.shape[:2]
+    nzd = scalar_digits(scalars, nw, MSM_WINDOW_BITS) != 0  # (windows, rows, I)
+    return (rows * n * (13 * MONT_MULS_PER_ADD + MONT_MULS_PER_DBL)
+            + int(nzd.sum() - nzd.any(2).sum()) * MONT_MULS_PER_ADD
+            + rows * (nw - 1) * (4 * MONT_MULS_PER_DBL + MONT_MULS_PER_ADD))
 
 
 def gathered(mats) -> int:
@@ -137,9 +202,8 @@ def compare_kernels(pk, prep, proof, launches: dict):
     from spartan2_tpu_torch.ec.comb import (
         comb_build, comb_build_plain, comb_rows, comb_rows_plain, n_windows,
         scalar_digits)
-    from spartan2_tpu_torch.ec.msm import (
-        MSM_WINDOW_BITS, msm, msm_plain, msm_windows, to_jacobian)
-    from spartan2_tpu_torch.field.limbs import limbs_to_ints, to_device
+    from spartan2_tpu_torch.ec.msm import msm, msm_plain, msm_windows, to_jacobian
+    from spartan2_tpu_torch.field.limbs import to_device
     from spartan2_tpu_torch.pcs.hyrax import (
         FULL_BITS, SMALL_BITS, hyrax_bind, hyrax_bind_plain)
     from spartan2_tpu_torch.polys.eq import eq_evals_host
@@ -160,13 +224,7 @@ def compare_kernels(pk, prep, proof, launches: dict):
     def check(name, got, plain):
         """Kernel output ``got`` against plain() -> plain milliseconds."""
         want, ms = once_ms(plain)
-        if isinstance(got, list):
-            same = got == limbs_to_ints(want, F, mont=True)
-        else:
-            same = torch.equal(got, want)
-        if not same:
-            raise RuntimeError(f"{name}: kernel differs from its plain version")
-        print(f"equal to plain: {name}", flush=True)
+        same_or_raise(name, got, want, F)
         return ms
 
     # Bounds count what the function needs for this run's data: each input
@@ -174,17 +232,11 @@ def compare_kernels(pk, prep, proof, launches: dict):
     # gather, not the whole vector), each output once, and the Montgomery
     # products of the additions and doublings it must do.
     def record_kernel(name, replaces, ms, plain_ms, nbytes, muls):
-        b, by = bound_ms(nbytes, muls)
-        out.append({"name": name, "route": "cuda",
-                    "source": f"spartan2_tpu_torch/csrc/{name}.cu",
-                    "replaces": replaces, "launches": launches[name],
-                    "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b, "bound_by": by, "library_ms": None})
+        out.append(kernel_record(name, replaces, launches[name], NONZK_COUNTS,
+                                 ms, plain_ms, nbytes, muls))
 
     def record_detail(name, ms, plain_ms, nbytes, muls):
-        b, by = bound_ms(nbytes, muls)
-        detail.append({"name": name, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": b, "bound_by": by})
+        detail.append(detail_record(name, ms, plain_ms, nbytes, muls))
 
     # kernel 1: the prove's suffix SpMV with the cached-prefix epilogue
     mats = [S.dev[n + "_sfx"] for n in "ABC"]
@@ -328,55 +380,230 @@ def compare_kernels(pk, prep, proof, launches: dict):
     pts = to_jacobian(comm_W.comm, curve, dev)
     pms = check(f"msm {rows} points", msm(sc, pts, curve),
                 lambda: msm_plain(sc, pts, curve))
-    nw = msm_windows(FULL_BITS)
-    nzd = scalar_digits(sc, nw, MSM_WINDOW_BITS) != 0  # (windows, points)
-    # per point 13 additions and one doubling for its 16 multiples; per
-    # window one addition per nonzero digit but the first; below the top
-    # window the ladder's 4 doublings and one addition per window
     record_kernel("msm", "spartan2_tpu/ec/device.py:398",
                   cuda_ms(lambda: msm(sc, pts, curve), 5), pms,
-                  rows * (32 + 96) + 96,
-                  rows * (13 * MONT_MULS_PER_ADD + MONT_MULS_PER_DBL)
-                  + int(nzd.sum() - nzd.any(1).sum()) * MONT_MULS_PER_ADD
-                  + (nw - 1) * (4 * MONT_MULS_PER_DBL + MONT_MULS_PER_ADD))
+                  rows * (32 + 96) + 96, msm_point_ops(sc[None], msm_windows(FULL_BITS)))
     return out, detail
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    from spartan2_tpu_torch.ec.comb import COMB
-    from spartan2_tpu_torch.ec.msm import MSM
-    from spartan2_tpu_torch.errors import SpartanError
-    from spartan2_tpu_torch.frontend.gadgets.sha256 import Sha256Circuit
-    from spartan2_tpu_torch.pcs.hyrax import HYRAX_BIND
+ZK_PATH = "on the SpartanZkSNARK path: setup_from_shape, prep_prove, four proves, verify"
+
+
+def compare_zk_kernels(S, zk_proof, proof, zk_launches: dict):
+    """Kernels A, B and C and the whole-z SpMV against their plain
+    versions at the ZK path's shapes -> (kernel records, detail records)."""
+    from spartan2_tpu_torch.ec.msm import msm_rows, msm_rows_plain, msm_windows, to_jacobian
+    from spartan2_tpu_torch.field.limbs import to_device
+    from spartan2_tpu_torch.pcs.hyrax import FULL_BITS
+    from spartan2_tpu_torch.r1cs.sparse import spmv, spmv_plain
+    from spartan2_tpu_torch.sumcheck.device import (
+        CUBIC, QUAD, bind, bind_plain, inner0_bind, inner0_bind_plain, inner0_evals,
+        inner0_evals_plain, round_evals_batched, round_evals_batched_plain)
     from spartan2_tpu_torch.provider.engines import get_engine
-    from spartan2_tpu_torch.r1cs.sparse import SPMV
+
+    engine = get_engine("P256HyraxEngine")
+    curve, F = engine.curve, engine.scalar
+    dev = S.dev["device"]
+    gen = torch.Generator().manual_seed(1)
+    rr = random.Random(9).randrange(F.modulus)
+    out, detail = [], []
+    sc_calls = zk_launches["sumcheck"]
+
+    def plain_ms(name, got, plain):
+        want, ms = once_ms(plain)
+        same_or_raise(name, got, want, F)
+        return ms
+
+    def pairs(evals):
+        p = F.modulus
+        return [(e0, (e0 - low + cross) % p) for e0, low, cross in evals]
+
+    # kernel A: one cubic round (evaluations + the bind of E and K
+    # instances of A, B, C) at 2^20, on copies made before the clock starts
+    n = S.num_cons
+    E = rand_field(n, F, gen, dev)
+    reps = 5
+    for K in (1, 2):
+        abc = [rand_field(K * n, F, gen, dev).reshape(K, n, 8) for _ in range(3)]
+        vecs = [E] + abc
+        plain_ms(f"zk cubic round evals K={K}", round_evals_batched(CUBIC, n, vecs, F),
+                 lambda: _pull_ints(round_evals_batched_plain(CUBIC, n, vecs, F), F, K))
+        v1 = [v.clone() for v in vecs]
+        v2 = [v.clone() for v in vecs]
+        bind(v1, n, rr, F)
+        plain_ms(f"zk bind K={K}", torch.cat([v.reshape(-1, 8) for v in v1]),
+                 lambda: (bind_plain(v2, n, rr, F),
+                          torch.cat([v.reshape(-1, 8) for v in v2]))[1])
+        copies = iter([[v.clone() for v in vecs] for _ in range(reps + 2)])
+
+        def cubic_round(ev, bd):
+            def run():
+                res = ev(CUBIC, n, vecs, F)
+                bd(next(copies), n, rr, F)
+                return res
+            return run
+
+        _, pms = once_ms(cubic_round(round_evals_batched_plain, bind_plain))
+        ms = cuda_ms(cubic_round(round_evals_batched, bind), reps)
+        del copies
+        nbytes = (1 + 3 * K) * (n + n // 2) * 32
+        muls = (9 * K + 1) * (n // 2)
+        if K == 1:
+            out.append(kernel_record(
+                "zk_rounds", "spartan2_tpu/sumcheck/zk_device.py:102",
+                sc_calls.get("sp2_round_evals", 0) + sc_calls.get("sp2_bind", 0),
+                f"sp2_round_evals and sp2_bind entry calls {ZK_PATH} (the ZK cubic "
+                "and quad rounds, and verify's 3 dot products)",
+                ms, pms, nbytes, muls, "spartan2_tpu_torch/csrc/sumcheck.cu"))
+        else:
+            detail.append(detail_record(f"zk cubic round K={K} at 2^{n.bit_length() - 1}",
+                                        ms, pms, nbytes, muls))
+    # kernel A's quad round at the inner sum-check's width 2^19, stride num_cols
+    nq = S.num_vars
+    az = [rand_field(S.num_cols, F, gen, dev)[None] for _ in range(2)]
+    pms = plain_ms("zk quad round evals", round_evals_batched(QUAD, nq, az, F),
+                   lambda: _pull_ints(round_evals_batched_plain(QUAD, nq, az, F), F, 1))
+    detail.append(detail_record(
+        f"zk quad round evals at 2^{nq.bit_length() - 1}",
+        cuda_ms(lambda: round_evals_batched(QUAD, nq, az, F), reps), pms,
+        2 * nq * 32, nq))
+
+    # kernel B: the structured inner round 0 at num_cols (evals + bind)
+    nv, ne = S.num_vars, S.num_cols - S.num_vars
+    abc, z = (rand_field(S.num_cols, F, gen, dev)[None] for _ in range(2))
+    plain_ms(f"inner0 evals num_cols={S.num_cols}", inner0_evals(abc, z, nv, ne, F),
+             lambda: pairs(_pull_ints(inner0_evals_plain(abc, z, nv, ne, F), F, 1)))
+    a1, z1, a2, z2 = abc.clone(), z.clone(), abc.clone(), z.clone()
+    inner0_bind(a1, z1, rr, nv, ne, F)
+    plain_ms("inner0 bind", torch.cat([a1, z1]),
+             lambda: (inner0_bind_plain(a2, z2, rr, nv, ne, F), torch.cat([a2, z2]))[1])
+    copies = iter([(abc.clone(), z.clone()) for _ in range(reps + 2)])
+
+    def round0(ev, bd):
+        def run():
+            res = ev(abc, z, nv, ne, F)
+            bd(*next(copies), rr, nv, ne, F)
+            return res
+        return run
+
+    _, pms = once_ms(round0(inner0_evals_plain, inner0_bind_plain))
+    ms = cuda_ms(round0(inner0_evals, inner0_bind), reps)
+    del copies
+    # what kernel B replaced on the non-ZK path: a quad round over abc and
+    # z zero-padded to 2 num_vars (the padding itself not timed)
+    padded = []
+    for _ in range(reps + 2):
+        a_pad, z_pad = (torch.zeros(2 * nv, 8, dtype=torch.int32, device=dev)
+                        for _ in range(2))
+        a_pad[: S.num_cols], z_pad[: S.num_cols] = abc[0], z[0]
+        padded.append([a_pad, z_pad])
+    pit = iter(padded)
+
+    def padded_round():
+        v = next(pit)
+        res = round_evals_batched(QUAD, 2 * nv, v, F)
+        bind(v, 2 * nv, rr, F)
+        return res
+
+    detail.append(detail_record(
+        "padded quad round 0 at 2^20 (evals + bind; replaced by kernel B)",
+        cuda_ms(padded_round, reps), None, 4 * nv * 32 + 2 * nv * 32, 2 * nv + 2 * nv))
+    del padded, pit
+    out.append(kernel_record(
+        "inner0", "spartan2_tpu/sumcheck/zk_device.py:284",
+        sc_calls.get("sp2_inner0_evals", 0) + sc_calls.get("sp2_inner0_bind", 0),
+        f"sp2_inner0_evals and sp2_inner0_bind entry calls {ZK_PATH}",
+        ms, pms, 2 * S.num_cols * 32 + 2 * nv * 32, nv + 2 * ne + 2 * nv,
+        "spartan2_tpu_torch/csrc/sumcheck.cu"))
+
+    # kernel C: the NIFS verifier's fold of the verifier-circuit W rows
+    # (43 rows of 2 points) with this run's proof points and weights
+    # [1, r], and 256 rows of 2 (two SHA-256 witness commitments)
+    nw = msm_windows(FULL_BITS)
+    r_fold = random.Random(13).randrange(F.modulus)
+    w = to_device([1, r_fold], F, dev)
+    c_vc = [zk_proof.random_U.comm_W.comm,
+            engine.pcs.combine_commitments(zk_proof.U_verifier.comm_w_per_round).comm]
+    c_big = [zk_proof.U.to_regular(engine.pcs)[0].comm,
+             proof.U.to_regular(engine.pcs)[0].comm]
+    for cs in (c_vc, c_big):
+        R = len(cs[0])
+        sc = w.expand(R, 2, 8).contiguous()
+        pts = to_jacobian([pt for row in zip(*cs) for pt in row], curve,
+                          dev).reshape(R, 2, 3, 8)
+        pms = plain_ms(f"msm_rows R={R} I=2", msm_rows(sc, pts, curve),
+                       lambda: msm_rows_plain(sc, pts, curve))
+        ms = cuda_ms(lambda: msm_rows(sc, pts, curve), reps)
+        nbytes, muls = R * 2 * (32 + 96) + R * 96, msm_point_ops(sc, nw)
+        if R == len(c_vc[0]):
+            out.append(kernel_record(
+                "msm_rows", "spartan2_tpu/ec/device.py:424",
+                zk_launches["msm"].get("sp2_msm_rows", 0),
+                f"sp2_msm_rows entry calls {ZK_PATH} (the NIFS verifier's fold of "
+                "W; its E fold has 32 points and stays on the host)",
+                ms, pms, nbytes, muls, "spartan2_tpu_torch/csrc/msm.cu"))
+        else:
+            detail.append(detail_record(f"msm_rows R={R} I=2", ms, pms, nbytes, muls))
+
+    # shape_mv: Az, Bz, Cz over the whole z (the ZK prover has no prefix cache)
+    mats = [S.dev[k] for k in "ABC"]
+    zz = rand_field(S.num_cols, F, gen, dev)
+    pms = plain_ms("spmv (shape_mv)", spmv(mats, zz, F), lambda: spmv_plain(mats, zz, F))
+    nnz = sum(m.indices.shape[0] for m in mats)
+    out.append(kernel_record(
+        "shape_mv", "spartan2_tpu/r1cs/shape.py:237",
+        zk_launches["spmv"].get("sp2_spmv", 0),
+        f"sp2_spmv entry calls {ZK_PATH} (per prove the whole-z SpMV and the "
+        "poly_ABC transposes; verify's MLE evaluation)",
+        cuda_ms(lambda: spmv(mats, zz, F), 5), pms,
+        nnz * 36 + gathered(mats) * 32 + 3 * S.num_cons * 32, nnz,
+        "spartan2_tpu_torch/csrc/spmv.cu"))
+    return out, detail
+
+
+def _pull_ints(t: torch.Tensor, F, K: int) -> list:
+    """(K, k, 8) Montgomery sums -> K lists of canonical ints."""
+    from spartan2_tpu_torch.field.limbs import limbs_to_ints
+
+    vals = limbs_to_ints(t.reshape(-1, 8), F, mont=True)
+    k = len(vals) // K
+    return [vals[i * k : (i + 1) * k] for i in range(K)]
+
+
+def spans_by_name(spans) -> dict:
+    """{span name: [calls, total ms]} of a recorded run."""
+    agg: dict = {}
+    for _, name, ms in spans:
+        calls, total = agg.get(name, (0, 0.0))
+        agg[name] = (calls + 1, total + ms)
+    return {k: [c, round(t, 3)] for k, (c, t) in agg.items()}
+
+
+def profiled_device_ms(fn) -> tuple[float, float, list]:
+    """(wall s, device ms, top kernels) of one run of fn under torch.profiler."""
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = sorted(((e.self_device_time_total, e.key, e.count)
+                     for e in prof.key_averages() if e.self_device_time_total > 0),
+                    reverse=True)
+    top = [(k[:60], round(t / 1e3, 4), c) for t, k, c in dev_us[:14]]
+    return wall, sum(t for t, _, _ in dev_us) / 1e3, top
+
+
+def run_spartan(engine, circuit, dev, kernels):
+    """SpartanSNARK on the main path -> (pk, prep, proof, launches)."""
+    from spartan2_tpu_torch.errors import SpartanError
     from spartan2_tpu_torch.snark.spartan import SpartanSNARK
-    from spartan2_tpu_torch.sumcheck.device import SUMCHECK
-    from spartan2_tpu_torch.utils.cuda import build_all
     from spartan2_tpu_torch.utils.serde import spartan_proof_to_bytes
     from spartan2_tpu_torch.utils.tracing import record
 
-    card = card_line()
-    print(f"card: {card}", flush=True)
-    kernels = [SPMV, SUMCHECK, COMB, HYRAX_BIND, MSM]
-    prove_kernels = [k.name for k in kernels if k is not MSM]  # MSM: verify only
-    print(f"build: {build_all(kernels):.1f} s (nvcc, {len(kernels)} sources in "
-          "parallel)", flush=True)
+    prove_kernels = [k.name for k in kernels if k.name != "msm"]  # msm: verify only
     for k in kernels:
-        log = k.lib_path.parent / f"{k.name}.log"
-        regs = [ln.strip() for ln in log.read_text().splitlines()
-                if "registers" in ln or "spill" in ln] if log.exists() else []
-        print(f"ptxas {k.name}: " + " | ".join(regs[:8]), flush=True)
-    dev = torch.device("cuda")
-
-    # ---------------- main path ----------------
-    engine = get_engine("P256HyraxEngine")
-    circuit = Sha256Circuit(bytes(i & 0xFF for i in range(1024)))
-    for k in kernels:
-        k.launches = 0
+        k.reset()
     phases = {}
     with record() as spans_setup:
         t0 = time.perf_counter()
@@ -398,7 +625,7 @@ def main() -> int:
     proof, prep = SpartanSNARK.prove(pk, circuit, prep, is_small=True, rng=det(2))
     phases["warmup_prove_s"] = time.perf_counter() - t0
     timed = []
-    for i in range(3):
+    for i in range(2):
         before = {k.name: k.launches for k in kernels}
         t0 = time.perf_counter()
         proof, prep = SpartanSNARK.prove(pk, circuit, prep, is_small=True,
@@ -419,6 +646,10 @@ def main() -> int:
     for name in prove_kernels:
         if per_prove[name] <= 0:
             raise RuntimeError(f"kernel {name} was not launched by a prove")
+    inner0 = sum(kernels[1].entry_launches.get(e, 0)
+                 for e in ("sp2_inner0_evals", "sp2_inner0_bind"))
+    if inner0 <= 0:
+        raise RuntimeError("kernel B was not launched by SpartanSNARK")
 
     blob = spartan_proof_to_bytes(proof, engine)
     if len(blob) != PROOF_BYTES:
@@ -436,30 +667,148 @@ def main() -> int:
     # one more prove with every span synchronized, for the breakdown
     with record() as spans:
         SpartanSNARK.prove(pk, circuit, prep, is_small=True, rng=det(6))
-    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
-        t0 = time.perf_counter()
-        SpartanSNARK.prove(pk, circuit, prep, is_small=True, rng=det(7))
-        torch.cuda.synchronize()
-        phases["profiled_prove_s"] = time.perf_counter() - t0
-    dev_us = sorted(((e.self_device_time_total, e.key, e.count)
-                     for e in prof.key_averages() if e.self_device_time_total > 0),
-                    reverse=True)
-    phases["profiled_prove_device_ms"] = sum(t for t, _, _ in dev_us) / 1e3
-    print("prove device time by kernel (ms, launches): " + json.dumps(
-        [(k[:60], round(t / 1e3, 4), c) for t, k, c in dev_us[:14]]), flush=True)
+    wall, dev_ms, top = profiled_device_ms(
+        lambda: SpartanSNARK.prove(pk, circuit, prep, is_small=True, rng=det(7)))
+    phases["profiled_prove_s"], phases["profiled_prove_device_ms"] = wall, dev_ms
+    print("prove device time by kernel (ms, launches): " + json.dumps(top), flush=True)
     print("phases: " + json.dumps(phases), flush=True)
     for title, sp in (("setup", spans_setup), ("prep", spans_prep),
                       ("prove (traced)", spans), ("verify", spans_verify)):
         print(f"{title} spans ms: " + json.dumps(
             [("  " * d + n, round(ms, 3)) for d, n, ms in sp]), flush=True)
     print(f"launches per prove: {json.dumps(per_prove)}; main path: "
-          f"{json.dumps(launches)}", flush=True)
+          f"{json.dumps(launches)}; by entry: "
+          f"{json.dumps({k.name: k.entry_launches for k in kernels})}", flush=True)
+    return pk, prep, proof, launches
 
-    check_golden_cubic(dev)
+
+def run_spartan_zk(engine, S, circuit, dev, kernels):
+    """SpartanZkSNARK on the main path, from the synthesized shape ->
+    (proof, launches by kernel and entry)."""
+    from spartan2_tpu_torch.errors import SpartanError
+    from spartan2_tpu_torch.snark.spartan_zk import SpartanZkSNARK
+    from spartan2_tpu_torch.utils.serde import (
+        spartan_zk_proof_from_bytes, spartan_zk_proof_to_bytes)
+    from spartan2_tpu_torch.utils.tracing import record
+
+    for k in kernels:
+        k.reset()
+    phases = {}
+    with record() as spans_setup:
+        t0 = time.perf_counter()
+        pk, vk = SpartanZkSNARK.setup_from_shape(engine, S, dev)
+        torch.cuda.synchronize()
+        phases["setup_from_shape_s"] = time.perf_counter() - t0
+    vcs = pk.vc_shape
+    print(f"verifier circuit: {vcs.num_rounds} rounds, total_vars {vcs.total_vars} "
+          f"(rows of {vcs.commitment_width}), num_cons {vcs.num_cons}, num_io "
+          f"{pk.vc_shape_regular.num_io}", flush=True)
+    t0 = time.perf_counter()
+    prep = SpartanZkSNARK.prep_prove(pk, circuit, is_small=True, rng=det(11))
+    torch.cuda.synchronize()
+    phases["prep_prove_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof, prep = SpartanZkSNARK.prove(pk, circuit, prep, is_small=True, rng=det(12))
+    torch.cuda.synchronize()
+    phases["warmup_prove_s"] = time.perf_counter() - t0
+    timed = []
+    for i in range(3):
+        before = {k.name: dict(k.entry_launches) for k in kernels}
+        t0 = time.perf_counter()
+        proof, prep = SpartanZkSNARK.prove(pk, circuit, prep, is_small=True,
+                                           rng=det(13 + i))
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
+        per_prove = {k.name: {e: c - before[k.name].get(e, 0)
+                              for e, c in k.entry_launches.items()} for k in kernels}
+    phases["prove_s"] = timed
+    with record() as spans_verify:
+        t0 = time.perf_counter()
+        if SpartanZkSNARK.verify(proof, vk) != circuit.public_values():
+            raise RuntimeError("ZK verify returned other public values")
+        phases["verify_s"] = time.perf_counter() - t0
+    launches = {k.name: dict(k.entry_launches) for k in kernels}
+    needed = {"spmv": ["sp2_spmv"], "comb": ["sp2_comb_rows"],
+              "hyrax_bind": ["sp2_hyrax_bind"],
+              "sumcheck": ["sp2_eq_table", "sp2_round_evals", "sp2_bind",
+                           "sp2_inner0_evals", "sp2_inner0_bind"]}
+    for name, entries in needed.items():
+        for e in entries:
+            if per_prove[name].get(e, 0) <= 0:
+                raise RuntimeError(f"{name}.{e} was not launched by a ZK prove")
+    for e in ("sp2_msm", "sp2_msm_rows"):
+        if launches["msm"].get(e, 0) <= 0:
+            raise RuntimeError(f"msm.{e} was not launched by the ZK verify")
+
+    blob = spartan_zk_proof_to_bytes(proof, engine)
+    back = spartan_zk_proof_from_bytes(blob, engine)
+    if spartan_zk_proof_to_bytes(back, engine) != blob:
+        raise RuntimeError("ZK proof does not round-trip through serde")
+    if SpartanZkSNARK.verify(back, vk) != circuit.public_values():
+        raise RuntimeError("ZK proof read back from bytes does not verify")
+    print(f"ZK proof: {len(blob)} bytes, round-trips through serde and verifies",
+          flush=True)
+    good = back.U_verifier.challenges_per_round[0][0]
+    back.U_verifier.challenges_per_round[0][0] = (good + 1) % engine.scalar.modulus
+    try:
+        SpartanZkSNARK.verify(back, vk)
+    except SpartanError as exc:
+        print(f"tampered ZK proof rejected: {type(exc).__name__}: {exc}", flush=True)
+    else:
+        raise RuntimeError("tampered ZK proof was accepted")
+
+    with record() as spans:
+        SpartanZkSNARK.prove(pk, circuit, prep, is_small=True, rng=det(16))
+    wall, dev_ms, top = profiled_device_ms(
+        lambda: SpartanZkSNARK.prove(pk, circuit, prep, is_small=True, rng=det(17)))
+    phases["profiled_prove_s"], phases["profiled_prove_device_ms"] = wall, dev_ms
+    print("ZK prove device time by kernel (ms, launches): " + json.dumps(top), flush=True)
+    print("ZK phases: " + json.dumps(phases), flush=True)
+    print("ZK setup spans ms: " + json.dumps(spans_by_name(spans_setup)), flush=True)
+    print("ZK prove (traced) spans [calls, ms]: " + json.dumps(spans_by_name(spans)),
+          flush=True)
+    print("ZK verify spans [calls, ms]: " + json.dumps(spans_by_name(spans_verify)),
+          flush=True)
+    print(f"ZK launches per prove: {json.dumps(per_prove)}; ZK path: "
+          f"{json.dumps(launches)}", flush=True)
+    return proof, launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from spartan2_tpu_torch.ec.comb import COMB
+    from spartan2_tpu_torch.ec.msm import MSM
+    from spartan2_tpu_torch.frontend.gadgets.sha256 import Sha256Circuit
+    from spartan2_tpu_torch.pcs.hyrax import HYRAX_BIND
+    from spartan2_tpu_torch.provider.engines import get_engine
+    from spartan2_tpu_torch.r1cs.sparse import SPMV
+    from spartan2_tpu_torch.sumcheck.device import SUMCHECK
+    from spartan2_tpu_torch.utils.cuda import build_all
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    kernels = [SPMV, SUMCHECK, COMB, HYRAX_BIND, MSM]
+    print(f"build: {build_all(kernels):.1f} s (nvcc, {len(kernels)} sources in "
+          "parallel)", flush=True)
+    for k in kernels:
+        log = k.lib_path.parent / f"{k.name}.log"
+        regs = [ln.strip() for ln in log.read_text().splitlines()
+                if "registers" in ln or "spill" in ln] if log.exists() else []
+        print(f"ptxas {k.name}: " + " | ".join(regs[:12]), flush=True)
+    dev = torch.device("cuda")
+    engine = get_engine("P256HyraxEngine")
+    circuit = Sha256Circuit(bytes(i & 0xFF for i in range(1024)))
+
+    pk, prep, proof, launches = run_spartan(engine, circuit, dev, kernels)
+    zk_proof, zk_launches = run_spartan_zk(engine, pk.S, circuit, dev, kernels)
+    check_golden_cubic(dev, zk=False)
+    check_golden_cubic(dev, zk=True)
     out, detail = compare_kernels(pk, prep, proof, launches)
-    print("kernel details (ms, bound_ms): " + json.dumps(detail), flush=True)
-    print(json.dumps({"kernels": out}), flush=True)
+    zk_out, zk_detail = compare_zk_kernels(pk.S, zk_proof, proof, zk_launches)
+    print("kernel details (ms, bound_ms): " + json.dumps(detail + zk_detail), flush=True)
+    print(json.dumps({"kernels": out + zk_out}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,29 +1,47 @@
-// Kernel 2: sum-check rounds and the eq table.
+// Kernel 2: sum-check rounds and the eq table, with kernels A (rounds
+// batched over K instances) and B (the structured inner round 0).
 //
 // Replaces the JAX package's fused sum-check programs
 // (spartan2_tpu/sumcheck/fused.py: FusedSumcheckCubicEq._peel_kernel
-// :307 and _kernel :213, FusedSumcheckQuad._kernel :464), the inner round
-// 0 (sumcheck/prove.py SpartanInnerRound0._step :627) and the eq table
-// (polys/eq.py eq_evals_device :79).  The JAX programs ran every round and
-// the Keccak transcript inside one launch; here a round is one evaluation
-// launch pair and one bind launch, and the host squeezes each challenge
-// from the 3 or 2 evaluations it pulls.
+// :307 and _kernel :213, FusedSumcheckQuad._kernel :464), the eq tables
+// (polys/eq.py eq_evals_device :79, eq_table / eq_evals_device_oneshot
+// :116/:135), the ZK rounds (sumcheck/zk_device.py zk_cubic_step/_final
+// :102/:116, zk_quad_step/_final :190/:201: kernel A) and the structured
+// inner round 0 (zk_device.py zk_inner0_evals/_bind :284/:308, which
+// also serves the non-ZK SpartanInnerRound0, sumcheck/prove.py:627:
+// kernel B).  The JAX programs ran every round and the Keccak transcript
+// inside one launch (non-ZK) or one step per round (ZK); here a round is
+// one evaluation launch pair and one bind launch, and the host squeezes
+// each challenge from the evaluations it pulls.
 //
 // Entries:
 //   sp2_eq_table     out[i] = prod_j (bit_j(i) ? r_j : 1 - r_j), where r_0
 //                    drives the most significant index bit (eq.py:79-94).
-//   sp2_round_evals  per-block partial sums then one reduction block:
+//   sp2_round_evals  per instance k < K (instance k's vectors start k *
+//                    stride elements after the first; the eq vector is
+//                    shared), per-block partial sums then one reduction
+//                    block per instance:
 //                    CUBIC  sum_j eq(X) (A(X) B(X) - C(X)) at X = 0, 2, 3
 //                    QUAD   sum_j A_lo B_lo and sum_j (A_hi-A_lo)(B_hi-B_lo)
 //                    DOT    sum_j A_j B_j
 //   sp2_bind         x_j <- x_lo_j + r (x_hi_j - x_lo_j) for up to four
-//                    vectors, in place into the low half.
+//                    vectors of K instances (or one, for a shared vector),
+//                    in place into the low half.
+//   sp2_inner0_evals the structured inner round 0 over abc and z at width
+//                    num_cols = num_vars + num_extra (nothing past it is
+//                    read; the virtual 2 num_vars domain is zero there):
+//                    sum_{j<num_vars} abc_j z_j, sum_{j<num_extra} abc_j z_j
+//                    and sum_{j<num_extra} (abc_{nv+j} - abc_j)(z_{nv+j} - z_j).
+//   sp2_inner0_bind  in place into width num_vars: x_j + r (x_{nv+j} - x_j)
+//                    for j < num_extra, (1 - r) x_j for the rest.
 //
 // An explicit eq table is bound alongside A, B, C, so any tau works,
 // including tau in {0, 1} where the JAX Gruen split had to fall back.
 //
 // Bound: a cubic round reads 4 halves-pairs (256 bytes per pair) and
-// does 6 Montgomery products per pair; the products bound it.
+// does 6 Montgomery products per pair; the products bound it.  Round 0
+// of the inner sum-check reads abc and z once at width num_cols instead
+// of the padded 2 num_vars, and does num_vars + 2 num_extra products.
 
 #include "field.cuh"
 
@@ -51,11 +69,37 @@ __global__ void eq_table_kernel(int m, const Fe* rs, uint32_t* out, Field F) {
   }
 }
 
+// Block sums of up to three per-thread sums into partial[(k, b, t)] for
+// instance k = blockIdx.y and block b = blockIdx.x.
+template <int NS>
+__device__ __forceinline__ void store_partials(Fe s0, Fe s1, Fe s2,
+                                               uint32_t* partial, const Field& F) {
+  const size_t at = ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * NS;
+  Fe t0 = block_sum<NT>(s0, F);
+  if (threadIdx.x == 0) fe_store(partial, at, t0);
+  if (NS > 1) {
+    Fe t1 = block_sum<NT>(s1, F);
+    if (threadIdx.x == 0) fe_store(partial, at + 1, t1);
+  }
+  if (NS > 2) {
+    Fe t2 = block_sum<NT>(s2, F);
+    if (threadIdx.x == 0) fe_store(partial, at + 2, t2);
+  }
+}
+
+// Instance blockIdx.y's vector: ``stride`` elements of 8 words apart.
+__device__ __forceinline__ const uint32_t* inst(const uint32_t* v, size_t stride) {
+  return v + (size_t)blockIdx.y * stride * 8;
+}
+
 template <int MODE>
-__global__ void round_evals_kernel(size_t half, const uint32_t* eq,
+__global__ void round_evals_kernel(size_t half, size_t stride, const uint32_t* eq,
                                    const uint32_t* A, const uint32_t* B,
                                    const uint32_t* C, uint32_t* partial,
                                    Field F) {
+  A = inst(A, stride);
+  B = inst(B, stride);
+  if (MODE == MODE_CUBIC) C = inst(C, stride);
   Fe s0 = fe_zero(), s1 = fe_zero(), s2 = fe_zero();
   for (size_t j = blockIdx.x * (size_t)NT + threadIdx.x; j < half;
        j += (size_t)gridDim.x * NT) {
@@ -86,42 +130,84 @@ __global__ void round_evals_kernel(size_t half, const uint32_t* eq,
       s2 = fe_add(s2, fe_mul(e3, fe_sub(fe_mul(a3, b3, F), c3, F), F), F);
     }
   }
-  constexpr int K = MODE == MODE_CUBIC ? 3 : (MODE == MODE_QUAD ? 2 : 1);
-  Fe t0 = block_sum<NT>(s0, F);
-  if (threadIdx.x == 0) fe_store(partial, (size_t)blockIdx.x * K, t0);
-  if (K > 1) {
-    Fe t1 = block_sum<NT>(s1, F);
-    if (threadIdx.x == 0) fe_store(partial, (size_t)blockIdx.x * K + 1, t1);
-  }
-  if (K > 2) {
-    Fe t2 = block_sum<NT>(s2, F);
-    if (threadIdx.x == 0) fe_store(partial, (size_t)blockIdx.x * K + 2, t2);
+  constexpr int NS = MODE == MODE_CUBIC ? 3 : (MODE == MODE_QUAD ? 2 : 1);
+  store_partials<NS>(s0, s1, s2, partial, F);
+}
+
+// out[k, t] = sum_b partial[k, b, t], one block per instance k
+__global__ void sum_partials_kernel(int nparts, int NS, const uint32_t* partial,
+                                    uint32_t* out, Field F) {
+  const size_t base = (size_t)blockIdx.x * nparts * NS;
+  for (int t = 0; t < NS; ++t) {
+    Fe s = fe_zero();
+    for (int b = threadIdx.x; b < nparts; b += NT)
+      s = fe_add(s, fe_load(partial, base + (size_t)b * NS + t), F);
+    s = block_sum<NT>(s, F);
+    if (threadIdx.x == 0) fe_store(out, (size_t)blockIdx.x * NS + t, s);
   }
 }
 
-// out[k] = sum_b partial[b * K + k], one block
-__global__ void sum_partials_kernel(int nparts, int K, const uint32_t* partial,
-                                    uint32_t* out, Field F) {
-  for (int k = 0; k < K; ++k) {
-    Fe s = fe_zero();
-    for (int b = threadIdx.x; b < nparts; b += NT)
-      s = fe_add(s, fe_load(partial, (size_t)b * K + k), F);
-    s = block_sum<NT>(s, F);
-    if (threadIdx.x == 0) fe_store(out, k, s);
+// The structured inner round 0 (kernel B): per instance blockIdx.y, the
+// three product sums over abc and z at width num_vars + num_extra.
+__global__ void inner0_evals_kernel(size_t num_vars, size_t num_extra, size_t stride,
+                                    const uint32_t* abc, const uint32_t* z,
+                                    uint32_t* partial, Field F) {
+  abc = inst(abc, stride);
+  z = inst(z, stride);
+  Fe s0 = fe_zero(), s1 = fe_zero(), s2 = fe_zero();
+  for (size_t j = blockIdx.x * (size_t)NT + threadIdx.x; j < num_vars;
+       j += (size_t)gridDim.x * NT) {
+    Fe a = fe_load(abc, j), x = fe_load(z, j);
+    Fe prod = fe_mul(a, x, F);
+    s0 = fe_add(s0, prod, F);
+    if (j < num_extra) {
+      s1 = fe_add(s1, prod, F);
+      Fe da = fe_sub(fe_load(abc, num_vars + j), a, F);
+      Fe dz = fe_sub(fe_load(z, num_vars + j), x, F);
+      s2 = fe_add(s2, fe_mul(da, dz, F), F);
+    }
   }
+  store_partials<3>(s0, s1, s2, partial, F);
 }
 
 struct Vec4 {
   uint32_t* p[4];
 };
 
-__global__ void bind_kernel(size_t half, Vec4 v, Fe r, Field F) {
-  uint32_t* x = v.p[blockIdx.y];
+// Vector blockIdx.y of instance blockIdx.z; a vector whose bit is set in
+// ``shared`` has one instance.
+__device__ __forceinline__ uint32_t* inst_vec(const Vec4& v, int shared,
+                                              size_t stride) {
+  if ((shared >> blockIdx.y) & 1) return blockIdx.z ? nullptr : v.p[blockIdx.y];
+  return v.p[blockIdx.y] + (size_t)blockIdx.z * stride * 8;
+}
+
+__global__ void bind_kernel(size_t half, size_t stride, int shared, Vec4 v, Fe r,
+                            Field F) {
+  uint32_t* x = inst_vec(v, shared, stride);
+  if (x == nullptr) return;
   for (size_t j = blockIdx.x * (size_t)blockDim.x + threadIdx.x; j < half;
        j += (size_t)gridDim.x * blockDim.x) {
     Fe lo = fe_load(x, j);
     Fe hi = fe_load(x, half + j);
     fe_store(x, j, fe_add(lo, fe_mul(r, fe_sub(hi, lo, F), F), F));
+  }
+}
+
+// Kernel B's bind, in place into width num_vars (each j reads only j and
+// num_vars + j, and writes j < num_vars).
+__global__ void inner0_bind_kernel(size_t num_vars, size_t num_extra, size_t stride,
+                                   Vec4 v, Fe r, Fe one_minus_r, Field F) {
+  uint32_t* x = inst_vec(v, 0, stride);
+  for (size_t j = blockIdx.x * (size_t)blockDim.x + threadIdx.x; j < num_vars;
+       j += (size_t)gridDim.x * blockDim.x) {
+    Fe lo = fe_load(x, j);
+    if (j < num_extra) {
+      Fe hi = fe_load(x, num_vars + j);
+      fe_store(x, j, fe_add(lo, fe_mul(r, fe_sub(hi, lo, F), F), F));
+    } else {
+      fe_store(x, j, fe_mul(one_minus_r, lo, F));
+    }
   }
 }
 
@@ -141,41 +227,82 @@ extern "C" int sp2_eq_table(int m, const void* rs, void* out,
   return (int)cudaGetLastError();
 }
 
-extern "C" int sp2_round_evals(int mode, size_t half, const void* eq, const void* A,
-                               const void* B, const void* C, void* partial,
-                               int nblocks, void* out,
+static int check_instances(int K) {
+  return (K < 1 || K > 65535) ? (int)cudaErrorInvalidValue : 0;
+}
+
+extern "C" int sp2_round_evals(int mode, size_t half, int K, size_t stride,
+                               const void* eq, const void* A, const void* B,
+                               const void* C, void* partial, int nblocks, void* out,
                                const uint32_t* field_words, void* stream) {
   Field F = field_from_words(field_words);
+  if (check_instances(K)) return check_instances(K);
   cudaStream_t s = (cudaStream_t)stream;
   const uint32_t *e = (const uint32_t*)eq, *a = (const uint32_t*)A,
                  *b = (const uint32_t*)B, *c = (const uint32_t*)C;
   uint32_t* part = (uint32_t*)partial;
-  int K;
+  dim3 grid((unsigned)nblocks, (unsigned)K);
+  int NS;
   if (mode == MODE_CUBIC) {
-    round_evals_kernel<MODE_CUBIC><<<nblocks, NT, 0, s>>>(half, e, a, b, c, part, F);
-    K = 3;
+    round_evals_kernel<MODE_CUBIC><<<grid, NT, 0, s>>>(half, stride, e, a, b, c, part, F);
+    NS = 3;
   } else if (mode == MODE_QUAD) {
-    round_evals_kernel<MODE_QUAD><<<nblocks, NT, 0, s>>>(half, e, a, b, c, part, F);
-    K = 2;
+    round_evals_kernel<MODE_QUAD><<<grid, NT, 0, s>>>(half, stride, e, a, b, c, part, F);
+    NS = 2;
   } else if (mode == MODE_DOT) {
-    round_evals_kernel<MODE_DOT><<<nblocks, NT, 0, s>>>(half, e, a, b, c, part, F);
-    K = 1;
+    round_evals_kernel<MODE_DOT><<<grid, NT, 0, s>>>(half, stride, e, a, b, c, part, F);
+    NS = 1;
   } else {
     return (int)cudaErrorInvalidValue;
   }
   int err = (int)cudaGetLastError();
   if (err) return err;
-  sum_partials_kernel<<<1, NT, 0, s>>>(nblocks, K, part, (uint32_t*)out, F);
+  sum_partials_kernel<<<K, NT, 0, s>>>(nblocks, NS, part, (uint32_t*)out, F);
   return (int)cudaGetLastError();
 }
 
-extern "C" int sp2_bind(size_t half, int nvec, void* v0, void* v1, void* v2,
-                        void* v3, const uint32_t* r_words,
-                        const uint32_t* field_words, void* stream) {
+extern "C" int sp2_bind(size_t half, int K, size_t stride, int nvec, int shared,
+                        void* v0, void* v1, void* v2, void* v3,
+                        const uint32_t* r_words, const uint32_t* field_words,
+                        void* stream) {
   Field F = field_from_words(field_words);
-  if (nvec < 1 || nvec > 4) return (int)cudaErrorInvalidValue;
+  if (nvec < 1 || nvec > 4 || check_instances(K)) return (int)cudaErrorInvalidValue;
   Vec4 v = {{(uint32_t*)v0, (uint32_t*)v1, (uint32_t*)v2, (uint32_t*)v3}};
-  dim3 grid(blocks_for(half, 4096), (unsigned)nvec);
-  bind_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(half, v, fe_from_words(r_words), F);
+  dim3 grid(blocks_for(half, 4096), (unsigned)nvec, (unsigned)K);
+  bind_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(half, stride, shared, v,
+                                                     fe_from_words(r_words), F);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sp2_inner0_evals(size_t num_vars, size_t num_extra, int K,
+                                size_t stride, const void* abc, const void* z,
+                                void* partial, int nblocks, void* out,
+                                const uint32_t* field_words, void* stream) {
+  Field F = field_from_words(field_words);
+  if (check_instances(K) || num_extra > num_vars) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid((unsigned)nblocks, (unsigned)K);
+  inner0_evals_kernel<<<grid, NT, 0, s>>>(num_vars, num_extra, stride,
+                                          (const uint32_t*)abc, (const uint32_t*)z,
+                                          (uint32_t*)partial, F);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  sum_partials_kernel<<<K, NT, 0, s>>>(nblocks, 3, (const uint32_t*)partial,
+                                       (uint32_t*)out, F);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sp2_inner0_bind(size_t num_vars, size_t num_extra, int K,
+                               size_t stride, void* abc, void* z,
+                               const uint32_t* r_words,
+                               const uint32_t* one_minus_r_words,
+                               const uint32_t* field_words, void* stream) {
+  Field F = field_from_words(field_words);
+  if (check_instances(K) || num_extra > num_vars) return (int)cudaErrorInvalidValue;
+  Vec4 v = {{(uint32_t*)abc, (uint32_t*)z, nullptr, nullptr}};
+  dim3 grid(blocks_for(num_vars, 4096), 2, (unsigned)K);
+  inner0_bind_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+      num_vars, num_extra, stride, v, fe_from_words(r_words),
+      fe_from_words(one_minus_r_words), F);
   return (int)cudaGetLastError();
 }

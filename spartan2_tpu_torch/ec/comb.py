@@ -179,18 +179,21 @@ def scalar_digits(scal: torch.Tensor, n_win: int,
 def row_sum_plain(pts: torch.Tensor, curve: CurveSpec) -> torch.Tensor:
     """(R, C, 3, 8) -> (R, 3, 8) row sums in the order of the kernels'
     block sum (csrc/curve.cuh block_pt_sum): thread t adds columns t,
-    t + 128, ... in order, then a halving tree over the 128 threads."""
+    t + 128, ... in order, then a halving tree over the 128 threads.
+    With C < 128 the threads past the next power of two of C hold the
+    identity, and an addition of the identity returns the other operand
+    unchanged, so the tree starts at that width: the same limbs."""
     R, C = pts.shape[:2]
-    k = -(-C // _SUM_NT)
-    if k * _SUM_NT > C:
-        pad = _inf_like(torch.empty(R, k * _SUM_NT - C, 3, 8, device=pts.device),
-                        curve)
+    nt = min(_SUM_NT, 1 << max(C - 1, 0).bit_length())
+    k = -(-C // nt)
+    if k * nt > C:
+        pad = _inf_like(torch.empty(R, k * nt - C, 3, 8, device=pts.device), curve)
         pts = torch.cat([pts, pad], 1)
-    pts = pts.reshape(R, k, _SUM_NT, 3, 8)
+    pts = pts.reshape(R, k, nt, 3, 8)
     part = _inf_like(pts[:, 0], curve)
     for i in range(k):
         part = pt_add(part, pts[:, i], curve)
-    s = _SUM_NT // 2
+    s = nt // 2
     while s:
         part = torch.cat([pt_add(part[:, :s], part[:, s : 2 * s], curve),
                           part[:, s:]], 1)

@@ -1,12 +1,15 @@
-"""Windowed MSM over runtime points: kernel 5 (csrc/msm.cu) and its
-plain version.
+"""Windowed MSMs over runtime points: kernels 5 and C (csrc/msm.cu) and
+their plain version.
 
 sum_i s_i * Q_i for points known only at run time, such as the row
-commitments a Hyrax verifier folds (the JAX package's DeviceCurve.msm,
-ec/device.py:398, reached through HyraxPCS._msm_auto).  Each point gets
-a table of its 16 multiples, each 4-bit window sums one table entry per
-point, and a Horner ladder of 4 doublings per window joins the window
-sums.  The points may come from a proof, so every addition is complete.
+commitments a Hyrax verifier folds (kernel 5: the JAX package's
+DeviceCurve.msm, ec/device.py:398, reached through HyraxPCS._msm_auto),
+and R such sums at once, one per row of I points (kernel C:
+DeviceCurve.msm_rows, ec/device.py:424, which HyraxPCS.fold_commitments
+uses to fold commitments row by row).  Each point gets a table of its 16
+multiples, each 4-bit window sums one table entry per point of its row,
+and a Horner ladder of 4 doublings per window joins a row's window sums.
+The points may come from a proof, so every addition is complete.
 
 The plain version follows the kernel's order of additions exactly, so
 the kernel's Jacobian output equals it limb for limb.
@@ -23,7 +26,8 @@ from .comb import (_inf_like, curve_words, pt_add, pt_dbl, row_sum_plain,
                    scalar_digits, to_affine)
 from .curve import Affine, CurveSpec
 
-MSM = CudaKernel("msm", {"sp2_msm": [I, I, P, P, P, P, P, P]})
+MSM = CudaKernel("msm", {"sp2_msm": [I, I, P, P, P, P, P, P],
+                         "sp2_msm_rows": [I, I, I, P, P, P, P, P, P]})
 
 MSM_WINDOW_BITS = 4
 MSM_DIGITS = 1 << MSM_WINDOW_BITS
@@ -37,18 +41,23 @@ def msm_windows(nbits: int) -> int:
     return max(1, -(-nbits // MSM_WINDOW_BITS))
 
 
-def msm_plain(scalars: torch.Tensor, points: torch.Tensor, curve: CurveSpec,
-              nbits: int = FULL_BITS) -> torch.Tensor:
-    """Plain version of ``msm``."""
-    n, n_win = points.shape[0], msm_windows(nbits)
+def msm_rows_plain(scalars: torch.Tensor, points: torch.Tensor, curve: CurveSpec,
+                   nbits: int = FULL_BITS) -> torch.Tensor:
+    """Plain version of ``msm_rows``."""
+    R, n = points.shape[:2]
+    n_win = msm_windows(nbits)
     rows = [_inf_like(points, curve), points]
     acc = points
     for _ in range(2, MSM_DIGITS):
         acc = pt_add(acc, points, curve)
         rows.append(acc)
-    table = torch.stack(rows)  # (16, n, 3, 8)
-    d = scalar_digits(scalars, n_win, MSM_WINDOW_BITS)  # (n_win, n)
-    sums = row_sum_plain(table[d, torch.arange(n, device=points.device)], curve)
+    table = torch.stack(rows)  # (16, R, n, 3, 8)
+    d = scalar_digits(scalars, n_win, MSM_WINDOW_BITS)  # (n_win, R, n)
+    r_idx = torch.arange(R, device=points.device)[:, None]
+    i_idx = torch.arange(n, device=points.device)
+    picked = table[d, r_idx, i_idx]  # (n_win, R, n, 3, 8)
+    sums = row_sum_plain(picked.reshape(n_win * R, n, 3, 8), curve)
+    sums = sums.reshape(n_win, R, 3, 8)
     acc = _inf_like(sums[0], curve)
     for k in range(n_win - 1, -1, -1):
         for _ in range(MSM_WINDOW_BITS):
@@ -57,24 +66,50 @@ def msm_plain(scalars: torch.Tensor, points: torch.Tensor, curve: CurveSpec,
     return acc
 
 
+def _launch(entry: str, scalars: torch.Tensor, points: torch.Tensor,
+            curve: CurveSpec, nbits: int) -> torch.Tensor:
+    check_cuda(scalars, points)
+    R, n = points.shape[:2]
+    if n == 0 or scalars.shape != (R, n, 8) or points.shape != (R, n, 3, 8):
+        raise ValueError("msm_rows: scalars (R, I, 8) and points (R, I, 3, 8), I > 0")
+    dev = points.device
+    table = torch.empty(MSM_DIGITS, R * n, 3, 8, dtype=torch.int32, device=dev)
+    n_win = msm_windows(nbits)
+    sums = torch.empty(R, n_win, 3, 8, dtype=torch.int32, device=dev)
+    out = torch.empty(R, 3, 8, dtype=torch.int32, device=dev)
+    args = (n_win, scalars.data_ptr(), points.data_ptr(), table.data_ptr(),
+            sums.data_ptr(), out.data_ptr(), curve_words(curve))
+    if entry == "sp2_msm":
+        MSM.call(entry, n, *args)
+    else:
+        MSM.call(entry, R, n, *args)
+    return out
+
+
+def msm_rows(scalars: torch.Tensor, points: torch.Tensor, curve: CurveSpec,
+             nbits: int = FULL_BITS) -> torch.Tensor:
+    """Kernel C: (R, I, 8) canonical scalars below 2^nbits and (R, I, 3, 8)
+    Jacobian Montgomery points -> (R, 3, 8) Jacobian row sums
+    sum_i scalars[r, i] * points[r, i]."""
+    if points.device.type == "cpu":
+        return msm_rows_plain(scalars, points, curve, nbits)
+    return _launch("sp2_msm_rows", scalars, points, curve, nbits)
+
+
+def msm_plain(scalars: torch.Tensor, points: torch.Tensor, curve: CurveSpec,
+              nbits: int = FULL_BITS) -> torch.Tensor:
+    """Plain version of ``msm``."""
+    return msm_rows_plain(scalars[None], points[None], curve, nbits)[0]
+
+
 def msm(scalars: torch.Tensor, points: torch.Tensor, curve: CurveSpec,
         nbits: int = FULL_BITS) -> torch.Tensor:
-    """(n, 8) canonical scalars below 2^nbits and (n, 3, 8) Jacobian
-    Montgomery points -> (3, 8) Jacobian sum_i scalars[i] * points[i]."""
+    """Kernel 5: (n, 8) canonical scalars below 2^nbits and (n, 3, 8)
+    Jacobian Montgomery points -> (3, 8) Jacobian sum_i scalars[i] *
+    points[i]."""
     if points.device.type == "cpu":
         return msm_plain(scalars, points, curve, nbits)
-    check_cuda(scalars, points)
-    n = points.shape[0]
-    if n == 0 or scalars.shape != (n, 8) or points.shape != (n, 3, 8):
-        raise ValueError("msm: scalars (n, 8) and points (n, 3, 8), n > 0")
-    dev = points.device
-    table = torch.empty(MSM_DIGITS, n, 3, 8, dtype=torch.int32, device=dev)
-    n_win = msm_windows(nbits)
-    sums = torch.empty(n_win, 3, 8, dtype=torch.int32, device=dev)
-    out = torch.empty(3, 8, dtype=torch.int32, device=dev)
-    MSM.call("sp2_msm", n, n_win, scalars.data_ptr(), points.data_ptr(),
-             table.data_ptr(), sums.data_ptr(), out.data_ptr(), curve_words(curve))
-    return out
+    return _launch("sp2_msm", scalars[None], points[None], curve, nbits)[0]
 
 
 def to_jacobian(points: list[Affine], curve: CurveSpec, device) -> torch.Tensor:

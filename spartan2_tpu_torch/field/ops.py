@@ -93,8 +93,8 @@ def _redc(t: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     P = _p_digits(spec, t.device, t.dim() - 1)
     n0 = (-pow(spec.modulus, -1, 1 << 16)) % (1 << 16)
     for i in range(_D):
-        m = ((t[i] & _MASK) * n0) & _MASK
-        t[i : i + _D] += m * P
+        m = (t[i] * n0) & _MASK  # t[i] * n0 < 2^56: no overflow
+        t[i : i + _D].addcmul_(P, m)
         t[i + 1] += t[i] >> 16
     return _limbs(_reduce_once(_carry(t[_D:]), spec))
 
@@ -105,7 +105,7 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     A, B = _digits(a), _digits(b)
     t = torch.zeros(2 * _D + 1, *A.shape[1:], dtype=torch.int64, device=a.device)
     for i in range(_D):
-        t[i : i + _D] += A[i] * B
+        t[i : i + _D].addcmul_(B, A[i])
     return _redc(t, spec)
 
 

@@ -4,11 +4,14 @@ Reference: src/provider/pcs/hyrax_pc.rs and src/provider/pcs/ipa.rs; the
 protocol, labels and order of random draws are the JAX package's
 (spartan2_tpu/pcs/hyrax.py), so proofs match it byte for byte.
 
-Card work: row commitments are comb MSMs (kernel 3, ec/comb.py), the
-L-fold of the evaluation argument is kernel 4 (csrc/hyrax_bind.cu,
-``hyrax_bind`` below) and the verifier's fold of the row commitments is
-the runtime-point MSM (kernel 5, ec/msm.py).  The IPA on the width-sized
-remainder and the blinds' scalar multiples run on the host.
+Card work: row commitments and the blinds' multiples of h are comb MSMs
+(kernel 3, ec/comb.py), the L-fold of the evaluation argument is kernel
+4 (csrc/hyrax_bind.cu, ``hyrax_bind`` below), the verifier's fold of the
+row commitments is the runtime-point MSM (kernel 5, ec/msm.py), and the
+row-by-row fold of two commitments (``fold_commitments``, NIFS) is the
+row-batched MSM (kernel C, ec/msm.py).  The IPA on the width-sized
+remainder, the direct openings of the ZK wrapper's small relaxed
+instance and the folds below 64 points run on the host.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from ..errors import (
 )
 from ..ec.comb import FixedBaseComb, to_affine
 from ..ec.curve import Affine, CurveSpec
-from ..ec.msm import msm_points
+from ..ec.msm import MSM_MIN_POINTS, msm_points, msm_rows, to_jacobian
 from ..field import ops
 from ..field.constants import FieldSpec
 from ..field.limbs import limbs_to_ints, to_device
@@ -198,6 +201,21 @@ class HyraxPCS:
         return HyraxCommitment(to_affine(self._blinds_times_h(ck, r.blind),
                                          self.curve))
 
+    def rerandomize_commitment(self, ck: HyraxCommitmentKey, comm: HyraxCommitment,
+                               r_old: HyraxBlind, r_new: HyraxBlind) -> HyraxCommitment:
+        """Row i + (r_new_i - r_old_i) h: fresh blinds without a recommit
+        (bellpepper/r1cs.rs:540-603).  The multiples of h are one comb
+        launch; the affine points equal the JAX package's host scalar
+        multiplications."""
+        if len(comm.comm) != len(r_old.blind) or len(comm.comm) != len(r_new.blind):
+            raise InvalidCommitmentLengthError(
+                "rerandomize_commitment: length mismatch")
+        q = self.curve.scalar.modulus
+        deltas = [(rn - ro) % q for ro, rn in zip(r_old.blind, r_new.blind)]
+        shifts = to_affine(self._blinds_times_h(ck, deltas), self.curve)
+        return HyraxCommitment([self.curve.add(pt, sh)
+                                for pt, sh in zip(comm.comm, shifts)])
+
     def check_commitment(self, comm: HyraxCommitment, n: int, width: int) -> None:
         if len(comm.comm) != _div_ceil(n, width):
             raise SpartanError(
@@ -299,6 +317,91 @@ class HyraxPCS:
                          transcript)
 
     # ------------------------------------------------------------------
+    # direct openings (hyrax_pc.rs:609-711): a random linear combination
+    # of the rows, width + 1 scalars per opening instead of an IPA
+    # ------------------------------------------------------------------
+    def prove_direct(self, ck: HyraxCommitmentKey, poly: list[int],
+                     blind: HyraxBlind, point: list[int]) -> tuple[list[int], int]:
+        """-> (v, combined blind): v = L . poly-as-matrix; the evaluation
+        is <v, eq(point_right)>."""
+        p = self.curve.scalar.modulus
+        num_cols = ck.num_cols
+        n = 1 << len(point)
+        num_rows = _div_ceil(n, num_cols)
+        if num_rows == 1:
+            return list(poly) + [0] * (num_cols - len(poly)), blind.blind[0]
+        num_vars_rows = num_rows.bit_length() - 1
+        L = eq_evals_host(self.curve.scalar, point[:num_vars_rows])
+        padded = list(poly) + [0] * (n - len(poly))
+        v = [0] * num_cols
+        for r_i, l in enumerate(L):
+            row = padded[r_i * num_cols : (r_i + 1) * num_cols]
+            for j in range(num_cols):
+                v[j] = (v[j] + l * row[j]) % p
+        return v, sum(l * b for l, b in zip(L, blind.blind)) % p
+
+    def verify_direct(self, vk: HyraxVerifierKey, comm: HyraxCommitment,
+                      v: list[int], combined_blind: int, point: list[int]) -> int:
+        """Check the combination against the row commitments; -> the
+        evaluation <v, eq(point_right)>."""
+        scalar = self.curve.scalar
+        num_cols = vk.num_cols
+        if len(v) != num_cols:
+            raise InvalidPCSError("direct opening: v length mismatch")
+        num_rows = _div_ceil(1 << len(point), num_cols)
+        num_vars_rows = num_rows.bit_length() - 1
+        if num_vars_rows == 0:
+            comm_LZ = comm.comm[0]
+        else:
+            L = eq_evals_host(scalar, point[:num_vars_rows])
+            # proof-supplied points: the MSMs' adds are complete
+            comm_LZ = msm_points(L[: len(comm.comm)], comm.comm, self.curve,
+                                 vk.device)
+        expected = self.curve.add(self.msm_gens(vk, v),
+                                  self.curve.scalar_mul(combined_blind, vk.h))
+        if comm_LZ != expected:
+            raise InvalidPCSError("direct opening: commitment mismatch")
+        Rv = eq_evals_host(scalar, point[num_vars_rows:])
+        return sum(x * y for x, y in zip(v, Rv)) % scalar.modulus
+
+    # ------------------------------------------------------------------
+    # folding (FoldingEngineTrait, traits/pcs.rs:204-232)
+    # ------------------------------------------------------------------
+    def fold_commitments(self, comms: list[HyraxCommitment], weights: list[int],
+                         device) -> HyraxCommitment:
+        """Row i of the result is sum_k weights[k] comms[k][i].  With 64
+        points or more and none at infinity, kernel C folds every row in
+        one launch on ``device``; else the host Pippenger folds each row
+        (the JAX package's threshold, pcs/hyrax.py:581-609).  The points
+        may come from a proof: every addition is complete."""
+        if len(comms) != len(weights) or not comms:
+            raise InvalidInputLengthError("fold_commitments: bad input")
+        rows = len(comms[0].comm)
+        if any(len(cm.comm) != rows for cm in comms):
+            raise InvalidCommitmentLengthError("fold_commitments: row counts differ")
+        pts = [[cm.comm[i] for cm in comms] for i in range(rows)]
+        no_inf = all(pt is not None for row in pts for pt in row)
+        if rows * len(comms) >= MSM_MIN_POINTS and no_inf:
+            q = self.curve.scalar.modulus
+            w = [x % q for x in weights]
+            sc = to_device(w, self.curve.scalar, device)
+            sc = sc.expand(rows, len(comms), 8).contiguous()
+            jac = to_jacobian([pt for row in pts for pt in row], self.curve, device)
+            out = msm_rows(sc, jac.reshape(rows, len(comms), 3, 8), self.curve,
+                           max(w).bit_length())
+            return HyraxCommitment(to_affine(out, self.curve))
+        return HyraxCommitment([msm_points(list(weights), row, self.curve, device)
+                                for row in pts])
+
+    def fold_blinds(self, blinds: list[HyraxBlind], weights: list[int]) -> HyraxBlind:
+        if len(blinds) != len(weights) or not blinds:
+            raise InvalidInputLengthError("fold_blinds: bad input")
+        p = self.curve.scalar.modulus
+        rows = len(blinds[0].blind)
+        return HyraxBlind([sum(w * b.blind[i] for w, b in zip(weights, blinds)) % p
+                           for i in range(rows)])
+
+    # ------------------------------------------------------------------
     # linear IPA (ipa.rs:125-221)
     # ------------------------------------------------------------------
     IPA_NAME = b"inner product argument (linear)"
@@ -351,7 +454,9 @@ class HyraxPCS:
 
     def msm_gens(self, ck: HyraxCommitmentKey, scalars: list[int]) -> Affine:
         """sum_j scalars[j] * ck[j]: host MSM below 32 scalars, else one
-        full-width comb row on the key's device (complete adds)."""
+        full-width comb row on the key's device (complete adds); the JAX
+        package's _msm_gens (pcs/hyrax.py:649), whose runtime-point MSM
+        for more scalars than columns gives the same point."""
         n = len(scalars)
         C = ck.num_cols
         if n < 32 or n > C:

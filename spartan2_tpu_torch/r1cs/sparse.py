@@ -1,7 +1,8 @@
 """Sparse R1CS matrices: host CSR over Python ints, and the field SpMV.
 
 ``SparseMatrix`` is the host CSR the shape is built from and serialized
-as (same layout and digest bytes as the JAX package's).  ``DeviceCSR``
+as (same layout and digest bytes as the JAX package's); its host SpMV
+serves the verifier circuit's small shapes.  ``DeviceCSR``
 holds one matrix on a device: int32 row offsets and column indices and
 each coefficient in Montgomery form.  ``spmv``/``spmv_combine`` launch
 kernel 1 (csrc/spmv.cu) on CUDA tensors and run the plain version on CPU
@@ -57,6 +58,17 @@ class SparseMatrix:
     @property
     def nnz(self) -> int:
         return len(self.data)
+
+    def multiply_vec_host(self, z: list[int]) -> list[int]:
+        """M z over Python ints (the verifier circuit's small shapes)."""
+        p = self.field.modulus
+        out = []
+        for row in range(self.rows):
+            s = 0
+            for k in range(self.indptr[row], self.indptr[row + 1]):
+                s += self.data[k] * z[self.indices[k]]
+            out.append(s % p)
+        return out
 
     def digest_bytes(self) -> bytes:
         """Deterministic bytes for vk digests (sparse write_digest_bytes)."""

@@ -7,9 +7,11 @@ spartan.py), so with the same blinds the proof bytes are equal.
 The prover keeps the bulk data on the keys' device: witness commits on
 the comb MSM (kernel 3), Az/Bz/Cz and poly_ABC on the SpMV (kernel 1),
 both sum-checks on kernel 2 with the transcript on the host between
-rounds, and the PCS L-fold on kernel 4.  Each round pulls only its 2 or
-3 evaluations, so the host work per proof is O(rounds) scalars plus the
-witness synthesis.
+rounds (the inner round 0 on its structured kernel B), and the PCS
+L-fold on kernel 4.  Each round pulls only its 2 or 3 evaluations, so
+the host work per proof is O(rounds) scalars plus the witness
+synthesis.  The entry points run under torch.inference_mode: nothing
+here needs autograd, and its bookkeeping would cost every small launch.
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ from ..polys.eq import eq_evaluate
 from ..polys.multilinear import sparse_poly_evaluate_host
 from ..provider.engines import Engine
 from ..r1cs.shape import R1CSWitness, SplitR1CSInstance, SplitR1CSShape
-from ..sumcheck.prove import prove_cubic_eq, prove_quad
+from ..sumcheck.prove import challenge, prove_cubic_eq, prove_quad
 from ..sumcheck.verify import SumcheckProof
+from ..sumcheck.zk_device import inner_round0
 from ..transcript.transcript import Transcript
 from ..utils.digest import vk_digest
 from ..utils.tracing import span
@@ -226,6 +229,7 @@ class SpartanSNARK:
     """R1CSSNARKTrait equivalent (traits/snark.rs:15-51)."""
 
     @staticmethod
+    @torch.inference_mode()
     def setup(engine: Engine, circuit, width: int = 2048, device="cuda"):
         """Keys whose device state (matrices, comb tables) lives on
         ``device``."""
@@ -242,6 +246,7 @@ class SpartanSNARK:
                 SpartanVerifierKey(engine, S, vk_ee, ck_s, digest))
 
     @staticmethod
+    @torch.inference_mode()
     def prep_prove(pk: SpartanProverKey, circuit, is_small: bool = False,
                    rng=None) -> SpartanPrepSNARK:
         with span("prep_synthesize_commit"):
@@ -252,6 +257,7 @@ class SpartanSNARK:
         return SpartanPrepSNARK(ps=ps)
 
     @staticmethod
+    @torch.inference_mode()
     def prove(pk: SpartanProverKey, circuit, prep: SpartanPrepSNARK,
               is_small: bool = False, rng=None):
         engine = pk.engine
@@ -293,15 +299,16 @@ class SpartanSNARK:
         with span("prepare_poly_ABC"):
             abc = S.bind_and_prepare_poly_ABC(r_x, r)
         with span("inner_sumcheck"):
-            # the 2 * num_vars inner domain: abc is zero past num_cols and
-            # z = (W, 1, public, challenges, 0, ...)
-            n_in = 2 * num_vars
-            A_in = torch.zeros(n_in, 8, dtype=torch.int32, device=device)
-            A_in[: S.num_cols] = abc
-            Z_in = torch.zeros(n_in, 8, dtype=torch.int32, device=device)
-            Z_in[: S.num_cols] = z
-            sc_proof_inner, r_y, finals = prove_quad(transcript, claim_inner,
-                                                     A_in, Z_in, F)
+            # the 2 * num_vars inner domain: abc and z are zero past
+            # num_cols, so round 0 is kernel B's structured round over
+            # num_cols, and the rest a quad sum-check over num_vars
+            r0, (poly0,), (claim0,) = inner_round0(
+                F, [claim_inner], abc, z, num_vars, S.num_cols - num_vars,
+                lambda unis: challenge(transcript, unis[0]))
+            sc_rest, r_rest, finals = prove_quad(transcript, claim0,
+                                                 abc[:num_vars], z[:num_vars], F)
+        sc_proof_inner = sc_rest.prepend_round(poly0)
+        r_y = [r0] + r_rest
         eval_Z = finals[1]
 
         # eval_W = (eval_Z - r_y[0] * eval_X) / (1 - r_y[0])   (Z = (W, 1, X))
@@ -327,6 +334,7 @@ class SpartanSNARK:
         return proof, prep
 
     @staticmethod
+    @torch.inference_mode()
     def verify(proof: SpartanSNARKProof, vk: SpartanVerifierKey) -> list[int]:
         """Reference verify (spartan.rs:469-578); the MLE evaluation of A, B
         and C runs on the key's device."""

@@ -1,7 +1,9 @@
 """Kernel 2 (csrc/sumcheck.cu): the eq table, sum-check round
-evaluations and binds, with their plain versions.
+evaluations and binds batched over K instances (kernel A), and the
+structured inner round 0 (kernel B), with their plain versions.
 
-Vectors are (n, 8) int32 Montgomery tensors.  On CUDA tensors each
+Vectors are (n, 8) int32 Montgomery tensors, or (K, n, 8) for K
+instances.  On CUDA tensors each
 wrapper launches the kernel (or raises); on CPU tensors it runs the plain
 PyTorch version.  Round evaluations come back as canonical Python ints
 (the host squeezes the round challenge from them).
@@ -18,22 +20,47 @@ from ..utils.cuda import SZ, CudaKernel, I, P, check_cuda, fe_words, field_words
 
 SUMCHECK = CudaKernel("sumcheck", {
     "sp2_eq_table": [I, P, P, P],
-    "sp2_round_evals": [I, SZ, P, P, P, P, P, I, P, P],
-    "sp2_bind": [SZ, I, P, P, P, P, P, P],
+    "sp2_round_evals": [I, SZ, I, SZ, P, P, P, P, P, I, P, P],
+    "sp2_bind": [SZ, I, SZ, I, I, P, P, P, P, P, P],
+    "sp2_inner0_evals": [SZ, SZ, I, SZ, P, P, P, I, P, P],
+    "sp2_inner0_bind": [SZ, SZ, I, SZ, P, P, P, P, P],
 })
 
 CUBIC, QUAD, DOT = 0, 1, 2
+_NSUMS = {CUBIC: 3, QUAD: 2, DOT: 1}
 _NT = 256
 _MAX_BLOCKS = 1024
 
 
-def _check_vecs(vecs: list, n: int, count: int) -> None:
-    """``count`` contiguous int32 CUDA vectors of at least n (n, 8) rows."""
-    if len(vecs) != count:
-        raise ValueError(f"expected {count} vectors, got {len(vecs)}")
+def _check_vecs(vecs: list, n: int) -> None:
+    """Contiguous int32 CUDA vectors (rows, 8) or (K, rows, 8) with at
+    least n rows."""
     check_cuda(*vecs)
-    if any(v.dim() != 2 or v.shape[1] != 8 or v.shape[0] < n for v in vecs):
-        raise ValueError(f"vectors must be (>= {n}, 8)")
+    if any(v.dim() not in (2, 3) or v.shape[-1] != 8 or v.shape[-2] < n
+           for v in vecs):
+        raise ValueError(f"vectors must be (>= {n}, 8) or (K, >= {n}, 8)")
+
+
+def _instances(vecs: list) -> tuple[int, int]:
+    """(K, stride) of the batched (K, rows, 8) vectors; K = 1 when none is
+    batched.  Every batched vector must have the same shape."""
+    batched = {tuple(v.shape) for v in vecs if v.dim() == 3}
+    if len(batched) > 1:
+        raise ValueError("batched vectors must have one shape (K, rows, 8)")
+    if not batched:
+        return 1, 0
+    K, rows, _ = batched.pop()
+    return K, rows
+
+
+def _nblocks(work: int) -> int:
+    return max(1, min(-(-work // _NT), _MAX_BLOCKS))
+
+
+def _pull(out: torch.Tensor, spec: FieldSpec, K: int) -> list[list[int]]:
+    vals = limbs_to_ints(out, spec, mont=True)
+    k = len(vals) // K
+    return [vals[i * k : (i + 1) * k] for i in range(K)]
 
 
 # ---------------------------------------------------------------------------
@@ -79,7 +106,8 @@ def eq_table(factors: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
 
 
 def round_evals_plain(mode: int, n: int, vecs: list, spec: FieldSpec) -> torch.Tensor:
-    """Plain version of ``round_evals``: (k, 8) Montgomery sums."""
+    """Plain version of ``round_evals`` for one instance: (k, 8)
+    Montgomery sums."""
     if mode == DOT:
         A, B = vecs
         return ops.sum_all(ops.mont_mul(A[:n], B[:n], spec), spec)[None]
@@ -105,27 +133,53 @@ def round_evals_plain(mode: int, n: int, vecs: list, spec: FieldSpec) -> torch.T
     return torch.stack(sums)
 
 
-def round_evals(mode: int, n: int, vecs: list, spec: FieldSpec) -> list[int]:
-    """Sums over the first ``n`` entries of the vectors, as canonical ints:
-    CUBIC (eq, A, B, C) -> [s(0), s(2), s(3)] of
+def round_evals_batched_plain(mode: int, n: int, vecs: list,
+                              spec: FieldSpec) -> torch.Tensor:
+    """Plain version of ``round_evals_batched``: (K, k, 8) Montgomery sums."""
+    K, _ = _instances(vecs)
+    return torch.stack([
+        round_evals_plain(mode, n, [v[k] if v.dim() == 3 else v for v in vecs],
+                          spec) for k in range(K)])
+
+
+def round_evals_batched(mode: int, n: int, vecs: list,
+                        spec: FieldSpec) -> list[list[int]]:
+    """Kernel A: the round sums of K instances at once, as canonical ints
+    per instance.  ``vecs`` are CUBIC (eq, A, B, C), QUAD (A, B) or DOT
+    (A, B); A, B, C are (K, rows, 8) tensors (instance k's vector is
+    row block k) or (rows, 8) for K = 1; the eq vector is (rows, 8) and
+    shared by every instance.  Per instance:
+    CUBIC -> [s(0), s(2), s(3)] of
         s(X) = sum_j eq(X) (A(X) B(X) - C(X)) over the n/2 pairs;
-    QUAD (A, B) -> [sum A_lo B_lo, sum (A_hi - A_lo)(B_hi - B_lo)];
-    DOT (A, B) -> [sum A B]."""
-    dev = vecs[0].device
-    if dev.type == "cpu":
-        return limbs_to_ints(round_evals_plain(mode, n, vecs, spec), spec,
-                             mont=True)
-    _check_vecs(vecs, n, 4 if mode == CUBIC else 2)
-    k = {CUBIC: 3, QUAD: 2, DOT: 1}[mode]
+    QUAD -> [sum A_lo B_lo, sum (A_hi - A_lo)(B_hi - B_lo)];
+    DOT -> [sum A B] over the first n entries."""
+    if len(vecs) != (4 if mode == CUBIC else 2):
+        raise ValueError(f"round_evals: wrong number of vectors for mode {mode}")
+    K, stride = _instances(vecs)
+    polys = vecs[1:] if mode == CUBIC else vecs
+    if K > 1 and any(v.dim() != 3 for v in polys):
+        raise ValueError("round_evals: with K > 1 every polynomial is (K, rows, 8)")
+    if mode == CUBIC and vecs[0].dim() != 2:
+        raise ValueError("round_evals: the eq vector is shared, (rows, 8)")
+    if vecs[0].device.type == "cpu":
+        return _pull(round_evals_batched_plain(mode, n, vecs, spec), spec, K)
+    _check_vecs(vecs, n)
+    ns = _NSUMS[mode]
     work = n if mode == DOT else n // 2
-    nblocks = max(1, min(-(-work // _NT), _MAX_BLOCKS))
-    partial = torch.empty(nblocks * k, 8, dtype=torch.int32, device=dev)
-    out = torch.empty(k, 8, dtype=torch.int32, device=dev)
+    nblocks = _nblocks(work)
+    dev = vecs[0].device
+    partial = torch.empty(K * nblocks * ns, 8, dtype=torch.int32, device=dev)
+    out = torch.empty(K * ns, 8, dtype=torch.int32, device=dev)
     ptr = [v.data_ptr() for v in vecs]
     eq, A, B, C = ptr if mode == CUBIC else [None, ptr[0], ptr[1], None]
-    SUMCHECK.call("sp2_round_evals", mode, work, eq, A, B, C,
+    SUMCHECK.call("sp2_round_evals", mode, work, K, stride, eq, A, B, C,
                   partial.data_ptr(), nblocks, out.data_ptr(), field_words(spec))
-    return limbs_to_ints(out, spec, mont=True)
+    return _pull(out, spec, K)
+
+
+def round_evals(mode: int, n: int, vecs: list, spec: FieldSpec) -> list[int]:
+    """``round_evals_batched`` of one instance: its list of sums."""
+    return round_evals_batched(mode, n, vecs, spec)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -138,19 +192,112 @@ def bind_plain(vecs: list, n: int, r: int, spec: FieldSpec) -> None:
     half = n // 2
     rr = ops.const(r, spec, device=vecs[0].device)
     for v in vecs:
-        lo, hi = v[:half], v[half:n]
-        v[:half] = ops.add(lo, ops.mont_mul(rr, ops.sub(hi, lo, spec), spec), spec)
+        lo, hi = v[..., :half, :], v[..., half:n, :]
+        v[..., :half, :] = ops.add(lo, ops.mont_mul(rr, ops.sub(hi, lo, spec), spec),
+                                   spec)
 
 
 def bind(vecs: list, n: int, r: int, spec: FieldSpec) -> None:
     """x[j] <- x[j] + r (x[n/2 + j] - x[j]) for j < n/2, in place in up to
-    four vectors (bind_poly_var_top; r canonical)."""
+    four vectors (bind_poly_var_top; r canonical).  A (K, rows, 8) vector
+    is bound in each of its K instances, a (rows, 8) vector once."""
     if vecs[0].device.type == "cpu":
         bind_plain(vecs, n, r, spec)
         return
     if not 1 <= len(vecs) <= 4:
         raise ValueError("bind: 1 to 4 vectors")
-    _check_vecs(vecs, n, len(vecs))
+    _check_vecs(vecs, n)
+    K, stride = _instances(vecs)
+    shared = sum(1 << i for i, v in enumerate(vecs) if v.dim() == 2)
     ptrs = [v.data_ptr() for v in vecs] + [None] * (4 - len(vecs))
-    SUMCHECK.call("sp2_bind", n // 2, len(vecs), *ptrs,
+    SUMCHECK.call("sp2_bind", n // 2, K, stride, len(vecs), shared, *ptrs,
                   fe_words(spec.to_mont(r)), field_words(spec))
+
+
+# ---------------------------------------------------------------------------
+# kernel B: the structured inner round 0
+# ---------------------------------------------------------------------------
+
+
+def _batch(v: torch.Tensor) -> torch.Tensor:
+    return v if v.dim() == 3 else v[None]
+
+
+def inner0_evals_plain(abc: torch.Tensor, z: torch.Tensor, num_vars: int,
+                       num_extra: int, spec: FieldSpec) -> torch.Tensor:
+    """Plain version of ``inner0_evals``: (K, 3, 8) Montgomery sums
+    (eval0, corr_low, corr_cross)."""
+    out = []
+    for a, x in zip(_batch(abc), _batch(z)):
+        nv, ne = num_vars, num_extra
+        da = ops.sub(a[nv : nv + ne], a[:ne], spec)
+        dz = ops.sub(x[nv : nv + ne], x[:ne], spec)
+        out.append(torch.stack([
+            ops.sum_all(ops.mont_mul(a[:nv], x[:nv], spec), spec),
+            ops.sum_all(ops.mont_mul(a[:ne], x[:ne], spec), spec),
+            ops.sum_all(ops.mont_mul(da, dz, spec), spec)]))
+    return torch.stack(out)
+
+
+def inner0_evals(abc: torch.Tensor, z: torch.Tensor, num_vars: int,
+                 num_extra: int, spec: FieldSpec) -> list[tuple[int, int]]:
+    """Kernel B's evaluations: per instance (eval0, t_inf) of round 0 of
+    sum_x abc(x) z(x) over the virtual 2 num_vars domain, from abc and z
+    at width num_cols = num_vars + num_extra ((rows, 8) or (K, rows, 8),
+    rows >= num_cols; both are zero past num_cols):
+    eval0 = sum_{j < num_vars} abc_j z_j, and
+    t_inf = eval0 - sum_{j < num_extra} abc_j z_j
+            + sum_{j < num_extra} (abc_{nv+j} - abc_j)(z_{nv+j} - z_j)
+    (zk_device.py ZkInnerRound0._evals of the JAX package)."""
+    if not 0 < num_extra <= num_vars:
+        raise ValueError("inner0: need 0 < num_extra <= num_vars")
+    K, stride = _instances([abc, z])
+    if abc.device.type == "cpu":
+        sums = _pull(inner0_evals_plain(abc, z, num_vars, num_extra, spec), spec, K)
+    else:
+        _check_vecs([abc, z], num_vars + num_extra)
+        if abc.shape != z.shape:
+            raise ValueError("inner0: abc and z must have one shape")
+        nblocks = _nblocks(num_vars)
+        partial = torch.empty(K * nblocks * 3, 8, dtype=torch.int32,
+                              device=abc.device)
+        out = torch.empty(K * 3, 8, dtype=torch.int32, device=abc.device)
+        SUMCHECK.call("sp2_inner0_evals", num_vars, num_extra, K, stride,
+                      abc.data_ptr(), z.data_ptr(),
+                      partial.data_ptr(), nblocks, out.data_ptr(),
+                      field_words(spec))
+        sums = _pull(out, spec, K)
+    p = spec.modulus
+    return [(e0, (e0 - low + cross) % p) for e0, low, cross in sums]
+
+
+def inner0_bind_plain(abc: torch.Tensor, z: torch.Tensor, r: int, num_vars: int,
+                      num_extra: int, spec: FieldSpec) -> None:
+    """Plain version of ``inner0_bind`` (in place)."""
+    rr = ops.const(r, spec, device=abc.device)
+    om = ops.const(1 - r, spec, device=abc.device)
+    nv, ne = num_vars, num_extra
+    for v in (abc, z):
+        lo, hi = v[..., :ne, :], v[..., nv : nv + ne, :]
+        v[..., :ne, :] = ops.add(lo, ops.mont_mul(rr, ops.sub(hi, lo, spec), spec),
+                                 spec)
+        v[..., ne:nv, :] = ops.mont_mul(om, v[..., ne:nv, :], spec)
+
+
+def inner0_bind(abc: torch.Tensor, z: torch.Tensor, r: int, num_vars: int,
+                num_extra: int, spec: FieldSpec) -> None:
+    """Kernel B's bind of round 0's challenge r, in place into the first
+    num_vars entries of abc and z: x_j + r (x_{nv+j} - x_j) for j <
+    num_extra, (1 - r) x_j for the rest (ZkInnerRound0._bind)."""
+    if not 0 < num_extra <= num_vars:
+        raise ValueError("inner0: need 0 < num_extra <= num_vars")
+    if abc.device.type == "cpu":
+        inner0_bind_plain(abc, z, r, num_vars, num_extra, spec)
+        return
+    _check_vecs([abc, z], num_vars + num_extra)
+    if abc.shape != z.shape:
+        raise ValueError("inner0: abc and z must have one shape")
+    K, stride = _instances([abc, z])
+    SUMCHECK.call("sp2_inner0_bind", num_vars, num_extra, K, stride,
+                  abc.data_ptr(), z.data_ptr(), fe_words(spec.to_mont(r)),
+                  fe_words(spec.to_mont((1 - r) % spec.modulus)), field_words(spec))

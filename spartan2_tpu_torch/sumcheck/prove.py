@@ -1,7 +1,8 @@
 """Sum-check provers on kernel 2, with the Fiat-Shamir transcript on the
 host.
 
-Each round launches one evaluation (3 or 2 sums pulled to the host), the
+The rounds are the drivers of sumcheck/zk_device.py with one instance:
+each round launches one evaluation (3 or 2 sums pulled to the host), the
 host builds the round polynomial, absorbs it and squeezes the challenge
 (labels b"p" / b"c", as the reference's sumcheck.rs and the JAX
 package's provers), then one bind launch halves the vectors in place.
@@ -14,16 +15,27 @@ from __future__ import annotations
 import torch
 
 from ..field.constants import FieldSpec
-from ..field.limbs import limbs_to_ints
 from ..polys.univariate import UniPoly
 from ..transcript.transcript import Transcript
-from .device import CUBIC, QUAD, bind, eq_factors, eq_table, round_evals
+from .device import eq_factors, eq_table
 from .verify import SumcheckProof
+from .zk_device import prove_zk_cubic, prove_zk_quad
 
 
-def _challenge(transcript: Transcript, poly: UniPoly) -> int:
+def challenge(transcript: Transcript, poly: UniPoly) -> int:
+    """Absorb a round polynomial, squeeze the round's challenge."""
     transcript.absorb_bytes(b"p", poly.to_transcript_bytes())
     return transcript.squeeze(b"c")
+
+
+def _recording(transcript: Transcript, polys: list):
+    """A challenge_fn that keeps each round's compressed polynomial."""
+
+    def fn(round_index: int, unis) -> int:
+        polys.append(unis[0].compress())
+        return challenge(transcript, unis[0])
+
+    return fn
 
 
 def prove_cubic_eq(transcript: Transcript, taus: list[int], A: torch.Tensor,
@@ -33,22 +45,11 @@ def prove_cubic_eq(transcript: Transcript, taus: list[int], A: torch.Tensor,
     (reference prove_cubic_with_three_inputs, sumcheck.rs:502-571).
     A, B, C are (n, 8) Montgomery tensors, bound in place.
     -> (proof, r_x, [A(r_x), B(r_x), C(r_x)])."""
-    p = spec.modulus
-    n = A.shape[0]
-    vecs = [eq_table(eq_factors(taus, spec, A.device), spec), A, B, C]
-    e = claim % p
-    polys, rs = [], []
-    while n > 1:
-        t0, t2, t3 = round_evals(CUBIC, n, vecs, spec)
-        poly = UniPoly.from_evals_deg3(spec, [t0, (e - t0) % p, t2, t3])
-        r = _challenge(transcript, poly)
-        e = poly.evaluate(r)
-        bind(vecs, n, r, spec)
-        n //= 2
-        polys.append(poly.compress())
-        rs.append(r)
-    finals = limbs_to_ints(torch.stack([A[0], B[0], C[0]]), spec, mont=True)
-    return SumcheckProof(spec, polys), rs, finals
+    polys: list = []
+    E = eq_table(eq_factors(taus, spec, A.device), spec)
+    rs, finals, _ = prove_zk_cubic(spec, [claim], E, (A[None], B[None], C[None]),
+                                   _recording(transcript, polys))
+    return SumcheckProof(spec, polys), rs, list(finals[0])
 
 
 def prove_quad(transcript: Transcript, claim: int, A: torch.Tensor,
@@ -57,19 +58,8 @@ def prove_quad(transcript: Transcript, claim: int, A: torch.Tensor,
     derived from the claim (reference prove_quad, sumcheck.rs:190-247).
     A, B are (n, 8) Montgomery tensors, bound in place.
     -> (proof, r, [A(r), B(r)])."""
-    p = spec.modulus
-    n = A.shape[0]
-    e = claim % p
-    polys, rs = [], []
-    while n > 1:
-        t0, t_inf = round_evals(QUAD, n, [A, B], spec)
-        e2 = (2 * e - 3 * t0 + 2 * t_inf) % p
-        poly = UniPoly.from_evals_deg2(spec, [t0, (e - t0) % p, e2])
-        r = _challenge(transcript, poly)
-        e = poly.evaluate(r)
-        bind([A, B], n, r, spec)
-        n //= 2
-        polys.append(poly.compress())
-        rs.append(r)
-    finals = limbs_to_ints(torch.stack([A[0], B[0]]), spec, mont=True)
-    return SumcheckProof(spec, polys), rs, finals
+    polys: list = []
+    rs, finals = prove_zk_quad(spec, [claim], (A[None], B[None]),
+                               A.shape[0].bit_length() - 1,
+                               _recording(transcript, polys))
+    return SumcheckProof(spec, polys), rs, list(finals[0])

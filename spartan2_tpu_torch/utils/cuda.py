@@ -7,7 +7,9 @@ checkout (git-ignored), keyed by a hash of the sources and flags.
 ``build_all`` starts one ``nvcc`` per source at once.
 
 Every kernel wrapper in the port holds a ``CudaKernel`` and adds one to
-its ``launches`` where it calls into the library, and nowhere else.
+its ``launches`` where it calls into the library, and nowhere else; the
+count is also kept per C entry (``entry_launches``), for a source whose
+entries serve more than one kernel.
 """
 
 from __future__ import annotations
@@ -50,7 +52,13 @@ class CudaKernel:
         self.source = CSRC / f"{name}.cu"
         self.entries = entries  # C function name -> argtypes before the stream
         self.launches = 0
+        self.entry_launches: dict[str, int] = {}
         self._lib = None
+
+    def reset(self) -> None:
+        """Set the launch counts to 0."""
+        self.launches = 0
+        self.entry_launches = {}
 
     def _key(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -102,6 +110,7 @@ class CudaKernel:
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(self.lib(), fn)(*args, stream)
         self.launches += 1
+        self.entry_launches[fn] = self.entry_launches.get(fn, 0) + 1
         if err != 0:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {err}")
 

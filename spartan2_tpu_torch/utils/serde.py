@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import struct
 
-from ..errors import SpartanError
+from ..errors import DigestError, SpartanError
 from ..field.constants import FieldSpec
 from ..pcs.hyrax import HyraxBlind, HyraxCommitment, HyraxEvaluationArgument, IpaProof
 from ..polys.univariate import CompressedUniPoly
@@ -177,6 +177,88 @@ def spartan_proof_from_bytes(data: bytes, engine):
                              eval_arg=HyraxEvaluationArgument(ipa))
 
 
+def _write_relaxed_instance(w: Writer, U):
+    w.commitment(U.comm_W)
+    w.commitment(U.comm_E)
+    w.scalar(U.u)
+    w.scalars(U.X)
+
+
+def _read_relaxed_instance(r: Reader):
+    from ..r1cs.relaxed import RelaxedR1CSInstance
+
+    return RelaxedR1CSInstance(comm_W=r.commitment(), comm_E=r.commitment(),
+                               u=r.scalar(), X=r.scalars())
+
+
+def _write_relaxed_snark(w: Writer, rp):
+    w.sumcheck(rp.sc_proof_outer)
+    w.scalars(list(rp.claims_outer))
+    w.sumcheck(rp.sc_proof_inner)
+    w.scalars(rp.v_W)
+    w.scalar(rp.blind_W)
+    w.scalars(rp.v_E)
+    w.scalar(rp.blind_E)
+
+
+def _read_relaxed_snark(r: Reader):
+    from ..snark.spartan_relaxed import RelaxedR1CSSpartanProof
+
+    return RelaxedR1CSSpartanProof(
+        sc_proof_outer=r.sumcheck(), claims_outer=tuple(r.scalars()),
+        sc_proof_inner=r.sumcheck(), v_W=r.scalars(), blind_W=r.scalar(),
+        v_E=r.scalars(), blind_E=r.scalar())
+
+
+def _write_multiround_instance(w: Writer, U):
+    w.u64(len(U.comm_w_per_round))
+    for c in U.comm_w_per_round:
+        w.commitment(c)
+    w.scalars(U.public_values)
+    w.u64(len(U.challenges_per_round))
+    for ch in U.challenges_per_round:
+        w.scalars(ch)
+
+
+def _read_multiround_instance(r: Reader):
+    from ..r1cs.multiround import SplitMultiRoundR1CSInstance
+
+    comms = [r.commitment() for _ in range(r.u64())]
+    public_values = r.scalars()
+    chals = [r.scalars() for _ in range(r.u64())]
+    return SplitMultiRoundR1CSInstance(comm_w_per_round=comms,
+                                       public_values=public_values,
+                                       challenges_per_round=chals)
+
+
+def spartan_zk_proof_to_bytes(proof, engine) -> bytes:
+    w = Writer(engine.scalar, engine.curve)
+    _write_split_instance(w, proof.U)
+    _write_multiround_instance(w, proof.U_verifier)
+    _write_relaxed_instance(w, proof.random_U)
+    w.commitment(proof.nifs.comm_T)
+    _write_relaxed_snark(w, proof.relaxed_snark)
+    w.ipa(proof.eval_arg.ipa)
+    return w.bytes_out()
+
+
+def spartan_zk_proof_from_bytes(data: bytes, engine):
+    from ..r1cs.relaxed import NovaNIFS
+    from ..snark.spartan_zk import SpartanZkSNARKProof
+
+    r = Reader(engine.scalar, engine.curve, data)
+    U = _read_split_instance(r)
+    U_verifier = _read_multiround_instance(r)
+    random_U = _read_relaxed_instance(r)
+    nifs = NovaNIFS(comm_T=r.commitment())
+    relaxed = _read_relaxed_snark(r)
+    ipa = r.ipa()
+    r.done()
+    return SpartanZkSNARKProof(U=U, U_verifier=U_verifier, random_U=random_U,
+                               nifs=nifs, relaxed_snark=relaxed,
+                               eval_arg=HyraxEvaluationArgument(ipa))
+
+
 # ---------------------------------------------------------------------------
 # keys / prep (checkpoint & resume; reference spartan.rs:42-124 derives
 # Serialize on ProverKey/VerifierKey/PrepSNARK)
@@ -261,6 +343,31 @@ def spartan_keys_from_bytes(data: bytes, engine, device="cuda"):
     ck_s, _ = engine.pcs.setup(b"ck_s", 1, 1, device)
     pk = SpartanProverKey(engine, S, ck, ck_s, digest)
     vk = SpartanVerifierKey(engine, S, vk_ee, ck_s, digest)
+    return pk, vk
+
+
+def spartan_zk_keys_to_bytes(pk) -> bytes:
+    """SpartanZk keys: the shape determines every derived component (the
+    verifier circuit's dimensions, the generators); store shape and
+    digest."""
+    w = Writer(pk.engine.scalar, pk.engine.curve)
+    _write_shape(w, pk.S)
+    w.buf += pk.vk_digest
+    return w.bytes_out()
+
+
+def spartan_zk_keys_from_bytes(data: bytes, engine, device="cuda"):
+    """-> (SpartanZkProverKey, SpartanZkVerifierKey) with device state on
+    ``device``; raises DigestError if the rebuilt keys' digest differs."""
+    from ..snark.spartan_zk import SpartanZkSNARK
+
+    r = Reader(engine.scalar, engine.curve, data)
+    S = _read_shape(r)
+    digest = r.take(32)
+    r.done()
+    pk, vk = SpartanZkSNARK.setup_from_shape(engine, S, device)
+    if pk.vk_digest != digest:
+        raise DigestError("reloaded SpartanZk key digest mismatch")
     return pk, vk
 
 

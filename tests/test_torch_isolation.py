@@ -34,6 +34,15 @@ def test_cubic_prove_runs_without_jax_or_kernels():
 import sys
 from spartan2_tpu_torch.provider.engines import get_engine
 from spartan2_tpu_torch.snark.spartan import SpartanSNARK
+# the ZK slice's modules load without JAX too
+import spartan2_tpu_torch.r1cs.multiround
+import spartan2_tpu_torch.r1cs.relaxed
+import spartan2_tpu_torch.snark.spartan_relaxed
+import spartan2_tpu_torch.snark.spartan_zk
+import spartan2_tpu_torch.snark.zk_circuits
+import spartan2_tpu_torch.sumcheck.host
+import spartan2_tpu_torch.sumcheck.zk_device
+import spartan2_tpu_torch.utils.serde
 from tests.torch_helpers import CubicCircuit, det
 engine, circuit = get_engine("P256HyraxEngine"), CubicCircuit()
 pk, vk = SpartanSNARK.setup(engine, circuit, width=4, device="cpu")
@@ -45,10 +54,11 @@ loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
 assert not loaded, loaded
 # CPU tensors ran the plain versions: no kernel was built or launched
 from spartan2_tpu_torch.ec.comb import COMB
+from spartan2_tpu_torch.ec.msm import MSM
 from spartan2_tpu_torch.pcs.hyrax import HYRAX_BIND
 from spartan2_tpu_torch.r1cs.sparse import SPMV
 from spartan2_tpu_torch.sumcheck.device import SUMCHECK
-for k in (SPMV, SUMCHECK, COMB, HYRAX_BIND):
+for k in (SPMV, SUMCHECK, COMB, HYRAX_BIND, MSM):
     assert k.launches == 0 and k._lib is None, k.name
 print("isolated")
 """

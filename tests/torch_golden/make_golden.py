@@ -1,17 +1,22 @@
-"""Record a JAX reference run of SpartanSNARK on the cubic circuit.
+"""Record JAX reference runs of SpartanSNARK and SpartanZkSNARK on the
+cubic circuit.
 
-The port's byte-identity test (tests/test_torch_spartan.py) loads the
-keys and the prep state written here, proves with the port from the same
-seeds, and compares its serialized proof with the JAX proof stored here.
-A JAX prove compiles its device programs on XLA:CPU for tens of minutes,
-so the reference side is recorded once and committed.
+The port's byte-identity tests (tests/test_torch_spartan.py,
+tests/test_torch_spartan_zk.py) load the keys and the prep state written
+here, prove with the port from the same seeds, and compare the serialized
+proof with the JAX proof stored here.  A JAX prove compiles its device
+programs on XLA:CPU for tens of minutes, so the reference side is
+recorded once and committed.
 
 Run from the repository root:
 
-    JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden
+    JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden        # cubic_p256.bin
+    JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --zk   # cubic_zk_p256.bin
 
 The committed ``cubic_p256.bin`` was recorded with the JAX package of
-commit 4cf6d4bc4a04b6b518ace38bd3ac5e0ff6d2cd09.
+commit 4cf6d4bc4a04b6b518ace38bd3ac5e0ff6d2cd09, and ``cubic_zk_p256.bin``
+(through JAX's default device path) with the JAX package of commit
+e26eee5ee9a12d44319e1936090806f3e64ac20b.
 
 File layout (all integers u64 little-endian):
     b"SP2GOLD1", width, prep_seed, prove_seed,
@@ -30,7 +35,9 @@ MAGIC = b"SP2GOLD1"
 WIDTH = 4
 PREP_SEED = 1
 PROVE_SEED = 2
-OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cubic_p256.bin")
+HERE = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(HERE, "cubic_p256.bin")
+OUT_ZK = os.path.join(HERE, "cubic_zk_p256.bin")
 
 
 def det(seed: int):
@@ -96,31 +103,38 @@ def jax_cubic_circuit():
     return CubicCircuit()
 
 
-def jax_prove() -> tuple[bytes, bytes, bytes]:
-    """JAX setup, prep_prove and prove from the fixed seeds."""
+def jax_prove(zk: bool = False) -> tuple[bytes, bytes, bytes]:
+    """JAX setup, prep_prove and prove from the fixed seeds, with
+    SpartanSNARK or (``zk``) SpartanZkSNARK."""
     from spartan2_tpu.provider.engines import get_engine
-    from spartan2_tpu.snark.spartan import SpartanSNARK
-    from spartan2_tpu.utils.serde import (
-        spartan_keys_to_bytes,
-        spartan_prep_to_bytes,
-        spartan_proof_to_bytes,
-    )
+    from spartan2_tpu.utils import serde
+
+    if zk:
+        from spartan2_tpu.snark.spartan_zk import SpartanZkSNARK as snark
+        keys_to_bytes = serde.spartan_zk_keys_to_bytes
+        proof_to_bytes = serde.spartan_zk_proof_to_bytes
+    else:
+        from spartan2_tpu.snark.spartan import SpartanSNARK as snark
+        keys_to_bytes = serde.spartan_keys_to_bytes
+        proof_to_bytes = serde.spartan_proof_to_bytes
 
     engine = get_engine("P256HyraxEngine")
     circuit = jax_cubic_circuit()
-    pk, _ = SpartanSNARK.setup(engine, circuit, width=WIDTH)
-    prep = SpartanSNARK.prep_prove(pk, circuit, rng=det(PREP_SEED))
-    keys = spartan_keys_to_bytes(pk)
-    prep_b = spartan_prep_to_bytes(prep, engine)
-    proof, _ = SpartanSNARK.prove(pk, circuit, prep, rng=det(PROVE_SEED))
-    return keys, prep_b, spartan_proof_to_bytes(proof, engine)
+    pk, _ = snark.setup(engine, circuit, width=WIDTH)
+    prep = snark.prep_prove(pk, circuit, rng=det(PREP_SEED))
+    keys = keys_to_bytes(pk)
+    prep_b = serde.spartan_prep_to_bytes(prep, engine)
+    proof, _ = snark.prove(pk, circuit, prep, rng=det(PROVE_SEED))
+    return keys, prep_b, proof_to_bytes(proof, engine)
 
 
 def main() -> int:
+    zk = "--zk" in sys.argv[1:]
+    out = OUT_ZK if zk else OUT
     t0 = time.time()
-    keys, prep, proof = jax_prove()
-    write_golden(OUT, keys, prep, proof)
-    print(f"wrote {OUT}: keys {len(keys)} B, prep {len(prep)} B, "
+    keys, prep, proof = jax_prove(zk)
+    write_golden(out, keys, prep, proof)
+    print(f"wrote {out}: keys {len(keys)} B, prep {len(prep)} B, "
           f"proof {len(proof)} B in {time.time() - t0:.1f} s")
     return 0
 
