@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit, builds the five CUDA sources
+1. Prints the card's name and power limit, builds the six CUDA sources
    from spartan2_tpu_torch/csrc/ (one nvcc per source, in parallel).
 2. Drives SpartanSNARK: setup, prep_prove, a warm-up prove and two timed
    proves on SHA-256 over a 1 KiB preimage (P256HyraxEngine, Hyrax width
@@ -17,16 +17,25 @@
    call, which may launch more than one __global__ function; the counts
    are also kept per entry, so kernels A and B (entries of sumcheck.cu)
    and C (an entry of msm.cu) are counted apart.
-4. Proves the cubic circuit on the card with both SNARKs from the JAX
-   package's recorded keys, prep state and seeds (tests/torch_golden/):
-   each proof must equal the recorded JAX proof byte for byte.
-5. Holds each kernel against its plain PyTorch version on the card, at the
+4. Drives NeutronNovaZkSNARK at bench.py's NeutronNova shape: 16 steps
+   of one SHA-256 compression (Sha256Circuit(bytes([i] * 55)), i < 16)
+   and the core Sha256Circuit(bytes(55)), width 2048, is_small=True:
+   setup, prep_prove, a first prove (it fills the prep cache of the
+   batched Az/Bz/Cz and the small grid), a warm-up prove and three timed
+   proves, verify, the proof through serde and back, a tampered step
+   public value rejected, one traced and one profiled prove; its counts
+   are set to 0 before its setup and read after its verify.
+5. Proves the cubic circuit on the card with both Spartan SNARKs, and
+   the two NeutronNova test configurations, from the JAX package's
+   recorded keys, prep state and seeds (tests/torch_golden/): each proof
+   must equal the recorded JAX proof byte for byte.
+6. Holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, on inputs from a fixed seed: equality is exact
    (tolerance 0: every output is an integer mod p).  Times kernel and
    plain version with CUDA events (no copies inside a timed region), and
    computes each kernel's bound from the bytes and 32-bit multiply-adds
    this run's data needs.
-6. Prints one JSON line with the kernels, then the card, then
+7. Prints one JSON line with the kernels, then the card, then
    {"ok": true, ...} as the last line.  Any failed check raises.
 """
 
@@ -305,7 +314,7 @@ def compare_kernels(pk, prep, proof, launches: dict):
                   4 * n * 32 + 4 * (n // 2) * 32, 10 * (n // 2))
     del copies
     record_detail(f"eq_table 2^{m}", cuda_ms(lambda: eq_table(fac, F), 5), eq_pms,
-                  n * 32, n * m)
+                  n * 32, n)
     record_detail(f"round_evals quad 2^{m}",
                   cuda_ms(lambda: round_evals(QUAD, n, vecs[:2], F), 5), quad_pms,
                   2 * n * 32, n)
@@ -774,6 +783,318 @@ def run_spartan_zk(engine, S, circuit, dev, kernels):
     return proof, launches
 
 
+NN_STEPS = 16
+NN_TPU_PROOF_BYTES = 238021  # BENCH_NN_r04.json: the JAX package on a TPU
+NN_PATH = ("on the NeutronNovaZkSNARK path: setup, prep_prove, five proves "
+           "(the first fills the prep cache), verify")
+
+
+def check_golden_nn(dev, name: str) -> None:
+    """Prove a NeutronNova test configuration on the card from the JAX
+    package's recorded keys, prep state and seed (tests/torch_golden/);
+    the proof must equal the recorded JAX proof byte for byte."""
+    from spartan2_tpu_torch.provider.engines import get_engine
+    from spartan2_tpu_torch.snark.neutronnova import NeutronNovaZkSNARK
+    from spartan2_tpu_torch.utils import serde
+    from tests.torch_golden.make_golden import NN_STEPS as GOLDEN_STEPS
+    from tests.torch_golden.make_golden import nn_path, read_golden
+    from tests.torch_helpers import (CoreCircuit, PrecommittedStepCircuit,
+                                     SquareStepCircuit)
+
+    step = {"square": SquareStepCircuit, "precommitted": PrecommittedStepCircuit}[name]
+    steps, core = [step(x) for x in GOLDEN_STEPS[name]], CoreCircuit()
+    golden = read_golden(nn_path(name))
+    engine = get_engine("P256HyraxEngine")
+    pk, vk = serde.neutronnova_keys_from_bytes(golden["keys"], engine, device=dev)
+    prep = serde.neutronnova_prep_from_bytes(golden["prep"], engine, steps, core)
+    proof, _ = NeutronNovaZkSNARK.prove(pk, steps, core, prep,
+                                        rng=det(golden["prove_seed"]))
+    if serde.neutronnova_proof_to_bytes(proof, engine) != golden["proof"]:
+        raise RuntimeError(f"NeutronNova {name}: proof on the card differs from the "
+                           "JAX proof")
+    want = ([c.public_values() for c in steps], core.public_values())
+    if NeutronNovaZkSNARK.verify(proof, vk, len(steps)) != want:
+        raise RuntimeError(f"NeutronNova {name}: proof on the card does not verify")
+    print(f"NeutronNova {name} ({len(steps)} steps) on the card: proof equals the "
+          f"recorded JAX proof ({len(golden['proof'])} bytes) and verifies", flush=True)
+
+
+def run_neutronnova(engine, dev, kernels):
+    """NeutronNovaZkSNARK on 16 SHA-256 steps (bench.py's NeutronNova
+    shape) -> (pk, prep, proof, launches by kernel and entry)."""
+    from spartan2_tpu_torch.errors import SpartanError
+    from spartan2_tpu_torch.frontend.gadgets.sha256 import Sha256Circuit
+    from spartan2_tpu_torch.snark.neutronnova import NeutronNovaZkSNARK as NN
+    from spartan2_tpu_torch.utils.serde import (neutronnova_proof_from_bytes,
+                                                neutronnova_proof_to_bytes)
+    from spartan2_tpu_torch.utils.tracing import record
+
+    steps = [Sha256Circuit(bytes([i] * 55)) for i in range(NN_STEPS)]
+    core = Sha256Circuit(bytes(55))
+    want = ([c.public_values() for c in steps], core.public_values())
+    for k in kernels:
+        k.reset()
+    phases = {}
+    with record() as spans_setup:
+        t0 = time.perf_counter()
+        pk, vk = NN.setup(engine, steps[0], core, NN_STEPS, width=2048, device=dev)
+        torch.cuda.synchronize()
+        phases["setup_s"] = time.perf_counter() - t0
+    S = pk.S_step
+    print(f"NN step shape: num_cons {S.num_cons} (unpadded {S.num_cons_unpadded}), "
+          f"num_vars {S.num_vars}, num_cols {S.num_cols}, num_public {S.num_public}, "
+          f"nnz A/B/C {S.A.nnz}/{S.B.nnz}/{S.C.nnz}, precommitted "
+          f"{S.num_precommitted_unpadded} -> {S.num_precommitted} "
+          f"({S.num_precommitted // S.width} rows), rest {S.num_rest_unpadded} -> "
+          f"{S.num_rest}; verifier circuit {pk.vc_shape.num_rounds} rounds, "
+          f"total_vars {pk.vc_shape.total_vars}", flush=True)
+    with record() as spans_prep:
+        t0 = time.perf_counter()
+        prep = NN.prep_prove(pk, steps, core, is_small=True, rng=det(21))
+        torch.cuda.synchronize()
+        phases["prep_prove_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof, prep = NN.prove(pk, steps, core, prep, is_small=True, rng=det(22))
+    torch.cuda.synchronize()
+    phases["first_prove_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof, prep = NN.prove(pk, steps, core, prep, is_small=True, rng=det(23))
+    torch.cuda.synchronize()
+    phases["warmup_prove_s"] = time.perf_counter() - t0
+    timed = []
+    for i in range(3):
+        before = {k.name: dict(k.entry_launches) for k in kernels}
+        t0 = time.perf_counter()
+        proof, prep = NN.prove(pk, steps, core, prep, is_small=True, rng=det(24 + i))
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
+        per_prove = {k.name: {e: c - before[k.name].get(e, 0)
+                              for e, c in k.entry_launches.items()} for k in kernels}
+    phases["prove_s"] = timed
+    with record() as spans_verify:
+        t0 = time.perf_counter()
+        if NN.verify(proof, vk, NN_STEPS) != want:
+            raise RuntimeError("NN verify returned other public values")
+        phases["verify_s"] = time.perf_counter() - t0
+    launches = {k.name: dict(k.entry_launches) for k in kernels}
+    small_ok = prep.cache["small"][1]
+    grid = prep.cache["ABC"].shape
+    print(f"NN small-value gate: {'passed' if small_ok else 'failed'} on the "
+          f"3 x {grid[1]} x {grid[2]} grid", flush=True)
+    path = {"spmv": ["sp2_spmv", "sp2_spmv_batched"], "comb": ["sp2_comb_rows"],
+            "hyrax_bind": ["sp2_hyrax_bind"], "msm": ["sp2_msm_rows"],
+            "sumcheck": ["sp2_pow_table", "sp2_eq_table", "sp2_round_evals", "sp2_bind",
+                         "sp2_inner0_evals", "sp2_inner0_bind"],
+            "nifs": ["sp2_nifs_round", "sp2_nifs_fold", "sp2_weighted_fold",
+                     "sp2_nifs_to_small"] + (["sp2_nifs_small_round"] if small_ok else [])}
+    for name, entries in path.items():
+        for e in entries:
+            if launches[name].get(e, 0) <= 0:
+                raise RuntimeError(f"{name}.{e} was not launched on the NN path")
+    for e in ("sp2_pow_table", "sp2_round_evals", "sp2_inner0_evals"):
+        if per_prove["sumcheck"].get(e, 0) <= 0:
+            raise RuntimeError(f"sumcheck.{e} was not launched by a timed NN prove")
+    for e in ("sp2_nifs_round", "sp2_nifs_fold", "sp2_weighted_fold") + (
+            ("sp2_nifs_small_round",) if small_ok else ()):
+        if per_prove["nifs"].get(e, 0) <= 0:
+            raise RuntimeError(f"nifs.{e} was not launched by a timed NN prove")
+
+    blob = neutronnova_proof_to_bytes(proof, engine)
+    back = neutronnova_proof_from_bytes(blob, engine)
+    if neutronnova_proof_to_bytes(back, engine) != blob:
+        raise RuntimeError("NN proof does not round-trip through serde")
+    if NN.verify(back, vk, NN_STEPS) != want:
+        raise RuntimeError("NN proof read back from bytes does not verify")
+    print(f"NN proof: {len(blob)} bytes (the JAX package's TPU-era run, "
+          f"BENCH_NN_r04.json: {NN_TPU_PROOF_BYTES}); round-trips through serde and "
+          "verifies", flush=True)
+    good = list(back.step_instances[3].public_values)
+    back.step_instances[3].public_values = [1 - good[0]] + good[1:]
+    try:
+        NN.verify(back, vk, NN_STEPS)
+    except SpartanError as exc:
+        print(f"tampered NN proof rejected: {type(exc).__name__}: {exc}", flush=True)
+    else:
+        raise RuntimeError("tampered NN proof was accepted")
+
+    with record() as spans:
+        NN.prove(pk, steps, core, prep, is_small=True, rng=det(28))
+    wall, dev_ms, top = profiled_device_ms(
+        lambda: NN.prove(pk, steps, core, prep, is_small=True, rng=det(29)))
+    phases["profiled_prove_s"], phases["profiled_prove_device_ms"] = wall, dev_ms
+    phases["profiled_prove_idle_share"] = 1 - dev_ms / 1e3 / wall
+    phases["proof_bytes"] = len(blob)
+    print("NN prove device time by kernel (ms, launches): " + json.dumps(top), flush=True)
+    print("NN phases: " + json.dumps(phases), flush=True)
+    print("NN setup spans ms: " + json.dumps(spans_by_name(spans_setup)), flush=True)
+    print("NN prep spans ms: " + json.dumps(spans_by_name(spans_prep)), flush=True)
+    print("NN prove (traced) spans [calls, ms]: " + json.dumps(spans_by_name(spans)),
+          flush=True)
+    print("NN verify spans [calls, ms]: " + json.dumps(spans_by_name(spans_verify)),
+          flush=True)
+    print(f"NN launches per timed prove: {json.dumps(per_prove)}; NN path: "
+          f"{json.dumps(launches)}", flush=True)
+    return pk, prep, proof, launches
+
+
+def compare_nn_kernels(pk, prep, proof, nn_launches: dict):
+    """Kernels 1-4 and kernel C at I = 16 against their plain versions, on
+    the NN path's data and shapes -> (kernel records, detail records)."""
+    from spartan2_tpu_torch.ec.msm import msm_rows, msm_rows_plain, msm_windows, to_jacobian
+    from spartan2_tpu_torch.field.limbs import limbs_to_ints, to_device
+    from spartan2_tpu_torch.pcs.hyrax import FULL_BITS
+    from spartan2_tpu_torch.polys.eq import pow_generators
+    from spartan2_tpu_torch.r1cs.sparse import spmv_batched, spmv_batched_plain
+    from spartan2_tpu_torch.snark.neutronnova import weights_from_r
+    from spartan2_tpu_torch.sumcheck.device import pow_table, pow_table_plain
+    from spartan2_tpu_torch.sumcheck.nifs import (
+        _fold_plain, nifs_fold, nifs_round, nifs_round_plain, small_round, to_small,
+        weighted_fold, weighted_fold_plain)
+    from spartan2_tpu_torch.field.small_value import small_round_plain, to_small_plain
+
+    engine, S = pk.engine, pk.S_step
+    curve, F = engine.curve, engine.scalar
+    dev = pk.device
+    gen = torch.Generator().manual_seed(3)
+    rnd = random.Random(31)
+    out, detail = [], []
+    reps = 5
+    n, m = S.num_cons, S.num_cons.bit_length() - 1
+    I = NN_STEPS
+    sc_calls, nifs_calls = nn_launches["sumcheck"], nn_launches["nifs"]
+
+    def plain_ms(name, got, plain):
+        want, ms = once_ms(plain)
+        same_or_raise(name, got, want, F)
+        return ms
+
+    def record(name, replaces, launches, counts, ms, pms, nbytes, muls,
+               source="spartan2_tpu_torch/csrc/nifs.cu"):
+        out.append(kernel_record(name, replaces, launches, f"{counts} {NN_PATH}", ms, pms,
+                                 nbytes, muls, source))
+
+    # kernel 1: the power table E from 15 powers of tau; the function needs
+    # n - 1 Montgomery products (the table built by doubling, as JAX does)
+    gens = to_device(pow_generators(F, rnd.randrange(F.modulus), m), F, dev, mont=True)
+    pms = plain_ms(f"pow_table 2^{m}", pow_table(gens, F), lambda: pow_table_plain(gens, F))
+    record("pow_table", "spartan2_tpu/polys/eq.py:97",
+           sc_calls.get("sp2_pow_table", 0), "sp2_pow_table entry calls",
+           cuda_ms(lambda: pow_table(gens, F), reps), pms, m * 32 + n * 32,
+           n - 1, "spartan2_tpu_torch/csrc/sumcheck.cu")
+
+    # kernel 2: Az, Bz, Cz of all 16 steps in one launch
+    mats = [S.dev[k] for k in "ABC"]
+    z = rand_field(I * S.num_cols, F, gen, dev).reshape(I, S.num_cols, 8)
+    pms = plain_ms("spmv_batched (shape_mv_batched)", spmv_batched(mats, z, F),
+                   lambda: spmv_batched_plain(mats, z, F))
+    nnz = sum(mt.indices.shape[0] for mt in mats)
+    record("spmv_batched", "spartan2_tpu/r1cs/shape.py:255",
+           nn_launches["spmv"].get("sp2_spmv_batched", 0),
+           "sp2_spmv_batched entry calls (once per prep: the first prove fills the "
+           "cache)", cuda_ms(lambda: spmv_batched(mats, z, F), reps), pms,
+           nnz * 36 + I * gathered(mats) * 32 + 3 * I * n * 32, I * nnz,
+           "spartan2_tpu_torch/csrc/spmv.cu")
+
+    # kernel 3: the NIFS round t = 1 (fold 16 -> 8, 4 pairs) on the prep
+    # cache's real grid, on copies made before the clock starts
+    ABC = prep.cache["ABC"]
+    E = pow_table(gens, F)
+    r1 = rnd.randrange(F.modulus)
+    ell_b = I.bit_length() - 1
+    w4 = rand_field(I // 4, F, gen, dev)
+    g1 = ABC.clone()
+    got = nifs_round(g1[0], g1[1], g1[2], E, w4, r1, True, F)
+    g2 = ABC.clone()
+    pms = plain_ms(f"nifs_round t=1 ({I} -> {I // 2})", got,
+                   lambda: nifs_round_plain(g2[0], g2[1], g2[2], E, w4, r1, True, F))
+    same_or_raise("nifs_round folded grid", g1[:, : I // 2], g2[:, : I // 2], F)
+    del g1, g2
+    copies = iter([ABC.clone() for _ in range(reps + 1)])
+    ms = cuda_ms(lambda: nifs_round(*next(copies), E, w4, r1, True, F), reps)
+    del copies
+    record("nifs_round", "spartan2_tpu/sumcheck/zk_device.py:365",
+           nifs_calls.get("sp2_nifs_round", 0), "sp2_nifs_round entry calls", ms, pms,
+           3 * I * n * 32 + 3 * (I // 2) * n * 32 + n * 32 + (I // 4) * 32 + 2 * 32,
+           3 * (I // 2) * n + 4 * (I // 4) * n)
+    # the final fold 2 -> 1
+    g1, g2 = ABC[:, :2].clone(), ABC[:, :2].clone()
+    nifs_fold(g1[0], g1[1], g1[2], r1, F)
+    pms = plain_ms("nifs_fold 2 -> 1", g1[:, 0],
+                   lambda: (_fold_plain((g2[0], g2[1], g2[2]), r1, F), g2[:, 0])[1])
+    copies = iter([ABC[:, :2].clone() for _ in range(reps + 1)])
+    ms = cuda_ms(lambda: nifs_fold(*next(copies), r1, F), reps)
+    del copies, g1, g2
+    record("nifs_final_fold", "spartan2_tpu/sumcheck/zk_device.py:459",
+           nifs_calls.get("sp2_nifs_fold", 0), "sp2_nifs_fold entry calls", ms, pms,
+           3 * 3 * n * 32, 3 * n)
+    # the witness fold: 16 precommitted prefixes x 16 weights
+    eff = S.num_shared + S.num_precommitted
+    W = rand_field(I * eff, F, gen, dev).reshape(I, eff, 8)
+    w16 = to_device(weights_from_r(F, [rnd.randrange(F.modulus) for _ in range(ell_b)],
+                                   I), F, dev, mont=True)
+    pms = plain_ms(f"weighted_fold {I} x {eff}", weighted_fold(W, w16, F),
+                   lambda: weighted_fold_plain(W, w16, F))
+    record("weighted_fold", "spartan2_tpu/sumcheck/zk_device.py:477",
+           nifs_calls.get("sp2_weighted_fold", 0),
+           "sp2_weighted_fold entry calls (the witness fold and W_fold + c_eval core_W)",
+           cuda_ms(lambda: weighted_fold(W, w16, F), reps), pms,
+           I * eff * 32 + I * 32 + eff * 32, I * eff)
+
+    # kernel 4: the gate over the real grid, then round 0 on small integers;
+    # each from_mont is a lone reduction, half a Montgomery product
+    S_small, ok = to_small(ABC[0], ABC[1], ABC[2], F)
+    pl = [to_small_plain(ABC[j], F) for j in range(3)]
+    want_ok = all(bool(o.all()) for _, o in pl)
+    if ok != want_ok:
+        raise RuntimeError("nifs_to_small: gate differs from its plain version")
+    pms = plain_ms("nifs_to_small", S_small,
+                   lambda: torch.stack([to_small_plain(ABC[j], F)[0] for j in range(3)]))
+    record("nifs_to_small", "spartan2_tpu/sumcheck/zk_device.py:387",
+           nifs_calls.get("sp2_nifs_to_small", 0),
+           "sp2_nifs_to_small entry calls (once per prep)",
+           cuda_ms(lambda: to_small(ABC[0], ABC[1], ABC[2], F), reps), pms,
+           3 * I * n * 32 + 3 * I * n * 16, 3 * I * n / 2)
+    w8 = rand_field(I // 2, F, gen, dev)
+    got = small_round(S_small, E, w8, F)
+    pms = plain_ms(f"nifs_small_round (I={I}, {I // 2} pairs)", got,
+                   lambda: limbs_to_ints(small_round_plain(S_small, E, w8, F), F))
+    mont = nifs_round(ABC[0], ABC[1], ABC[2], E, w8, 0, False, F)  # no fold: no write
+    if ok and got != mont:
+        raise RuntimeError("nifs_small_round differs from the Montgomery round 0")
+    print(f"small round 0 {'equals' if ok else '(gate failed; not compared with)'} the "
+          "Montgomery round 0", flush=True)
+    # what kernel 4 stands in for: kernel 3's round 0 on the same grid
+    detail.append(detail_record(
+        f"nifs_round t=0 (Montgomery, I={I}, {I // 2} pairs; kernel 4's alternative)",
+        cuda_ms(lambda: nifs_round(ABC[0], ABC[1], ABC[2], E, w8, 0, False, F), reps),
+        None, 5 * (I // 2) * n * 32 + n * 32, 4 * (I // 2) * n))
+    # per pair entry: 9 + 9 products of 32-bit words for the two integer
+    # products, 2 x 40 for the multiples of E; 2 multiply-adds each
+    record("nifs_small_round", "spartan2_tpu/sumcheck/zk_device.py:445",
+           nifs_calls.get("sp2_nifs_small_round", 0),
+           "sp2_nifs_small_round entry calls",
+           cuda_ms(lambda: small_round(S_small, E, w8, F), reps), pms,
+           5 * (I // 2) * n * 16 + n * 32, (I // 2) * n * 196 / IMAD_PER_MONT_MUL)
+
+    # kernel C at R = 15, I = 16: the prover's fold of the steps'
+    # precommitted rows with this run's points
+    rows = [U.comm_W_precommitted.comm for U in proof.step_instances]
+    R = len(rows[0])
+    wts = weights_from_r(F, [rnd.randrange(F.modulus) for _ in range(ell_b)], I)
+    sc = to_device(wts, F, dev).expand(R, I, 8).contiguous()
+    pts = to_jacobian([rows[i][r] for r in range(R) for i in range(I)], curve,
+                      dev).reshape(R, I, 3, 8)
+    pms = plain_ms(f"msm_rows R={R} I={I}", msm_rows(sc, pts, curve),
+                   lambda: msm_rows_plain(sc, pts, curve))
+    record("msm_rows_nn", "spartan2_tpu/ec/device.py:424",
+           nn_launches["msm"].get("sp2_msm_rows", 0),
+           "sp2_msm_rows entry calls (the folds of the step commitments in prove "
+           "and verify)", cuda_ms(lambda: msm_rows(sc, pts, curve), reps), pms,
+           R * I * (32 + 96) + R * 96, msm_point_ops(sc, msm_windows(FULL_BITS)),
+           "spartan2_tpu_torch/csrc/msm.cu")
+    return out, detail
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -785,11 +1106,13 @@ def main() -> int:
     from spartan2_tpu_torch.provider.engines import get_engine
     from spartan2_tpu_torch.r1cs.sparse import SPMV
     from spartan2_tpu_torch.sumcheck.device import SUMCHECK
+    from spartan2_tpu_torch.sumcheck.nifs import NIFS
     from spartan2_tpu_torch.utils.cuda import build_all
 
     card = card_line()
     print(f"card: {card}", flush=True)
-    kernels = [SPMV, SUMCHECK, COMB, HYRAX_BIND, MSM]
+    spartan_kernels = [SPMV, SUMCHECK, COMB, HYRAX_BIND, MSM]
+    kernels = spartan_kernels + [NIFS]
     print(f"build: {build_all(kernels):.1f} s (nvcc, {len(kernels)} sources in "
           "parallel)", flush=True)
     for k in kernels:
@@ -801,14 +1124,19 @@ def main() -> int:
     engine = get_engine("P256HyraxEngine")
     circuit = Sha256Circuit(bytes(i & 0xFF for i in range(1024)))
 
-    pk, prep, proof, launches = run_spartan(engine, circuit, dev, kernels)
-    zk_proof, zk_launches = run_spartan_zk(engine, pk.S, circuit, dev, kernels)
+    pk, prep, proof, launches = run_spartan(engine, circuit, dev, spartan_kernels)
+    zk_proof, zk_launches = run_spartan_zk(engine, pk.S, circuit, dev, spartan_kernels)
+    nn_pk, nn_prep, nn_proof, nn_launches = run_neutronnova(engine, dev, kernels)
     check_golden_cubic(dev, zk=False)
     check_golden_cubic(dev, zk=True)
+    for name in ("square", "precommitted"):
+        check_golden_nn(dev, name)
     out, detail = compare_kernels(pk, prep, proof, launches)
     zk_out, zk_detail = compare_zk_kernels(pk.S, zk_proof, proof, zk_launches)
-    print("kernel details (ms, bound_ms): " + json.dumps(detail + zk_detail), flush=True)
-    print(json.dumps({"kernels": out + zk_out}), flush=True)
+    nn_out, nn_detail = compare_nn_kernels(nn_pk, nn_prep, nn_proof, nn_launches)
+    print("kernel details (ms, bound_ms): " + json.dumps(detail + zk_detail + nn_detail),
+          flush=True)
+    print(json.dumps({"kernels": out + zk_out + nn_out}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

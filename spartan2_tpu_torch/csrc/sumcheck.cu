@@ -5,7 +5,9 @@
 // (spartan2_tpu/sumcheck/fused.py: FusedSumcheckCubicEq._peel_kernel
 // :307 and _kernel :213, FusedSumcheckQuad._kernel :464), the eq tables
 // (polys/eq.py eq_evals_device :79, eq_table / eq_evals_device_oneshot
-// :116/:135), the ZK rounds (sumcheck/zk_device.py zk_cubic_step/_final
+// :116/:135), the power table of NeutronNova's NIFS (polys/eq.py
+// pow_evals_device :97, jitted by _pow_table_jit :121 under fastkey
+// "pow_table", called through pow_evals_device_oneshot :128), the ZK rounds (sumcheck/zk_device.py zk_cubic_step/_final
 // :102/:116, zk_quad_step/_final :190/:201: kernel A) and the structured
 // inner round 0 (zk_device.py zk_inner0_evals/_bind :284/:308, which
 // also serves the non-ZK SpartanInnerRound0, sumcheck/prove.py:627:
@@ -17,6 +19,9 @@
 // Entries:
 //   sp2_eq_table     out[i] = prod_j (bit_j(i) ? r_j : 1 - r_j), where r_0
 //                    drives the most significant index bit (eq.py:79-94).
+//   sp2_pow_table    out[k] = prod_j (bit_j(k) ? g_j : 1) = t^k from the m
+//                    powers g_j = t^(2^(m-1-j)); g_0 drives the most
+//                    significant index bit, as in the eq table.
 //   sp2_round_evals  per instance k < K (instance k's vectors start k *
 //                    stride elements after the first; the eq vector is
 //                    shared), per-block partial sums then one reduction
@@ -65,6 +70,20 @@ __global__ void eq_table_kernel(int m, const Fe* rs, uint32_t* out, Field F) {
       const int bit = (int)((i >> (m - 1 - j)) & 1);
       acc = fe_mul(acc, bit ? sr[j] : sr[m + j], F);
     }
+    fe_store(out, i, acc);
+  }
+}
+
+__global__ void pow_table_kernel(int m, const Fe* gs, uint32_t* out, Field F) {
+  __shared__ Fe sg[64];
+  for (int j = threadIdx.x; j < m; j += blockDim.x) sg[j] = gs[j];
+  __syncthreads();
+  const size_t n = (size_t)1 << m;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    Fe acc = fe_one(F);
+    for (int j = 0; j < m; ++j)
+      if ((i >> (m - 1 - j)) & 1) acc = fe_mul(acc, sg[j], F);
     fe_store(out, i, acc);
   }
 }
@@ -224,6 +243,16 @@ extern "C" int sp2_eq_table(int m, const void* rs, void* out,
   const size_t n = (size_t)1 << m;
   eq_table_kernel<<<blocks_for(n, 65535), NT, 0, (cudaStream_t)stream>>>(
       m, (const Fe*)rs, (uint32_t*)out, F);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sp2_pow_table(int m, const void* gs, void* out,
+                             const uint32_t* field_words, void* stream) {
+  Field F = field_from_words(field_words);
+  if (m < 0 || m > 40) return (int)cudaErrorInvalidValue;
+  const size_t n = (size_t)1 << m;
+  pow_table_kernel<<<blocks_for(n, 65535), NT, 0, (cudaStream_t)stream>>>(
+      m, (const Fe*)gs, (uint32_t*)out, F);
   return (int)cudaGetLastError();
 }
 

@@ -5,11 +5,13 @@ protocol, labels and order of random draws are the JAX package's
 (spartan2_tpu/pcs/hyrax.py), so proofs match it byte for byte.
 
 Card work: row commitments and the blinds' multiples of h are comb MSMs
-(kernel 3, ec/comb.py), the L-fold of the evaluation argument is kernel
-4 (csrc/hyrax_bind.cu, ``hyrax_bind`` below), the verifier's fold of the
-row commitments is the runtime-point MSM (kernel 5, ec/msm.py), and the
-row-by-row fold of two commitments (``fold_commitments``, NIFS) is the
-row-batched MSM (kernel C, ec/msm.py).  The IPA on the width-sized
+(kernel 3, ec/comb.py; many vectors' rows in one launch for
+NeutronNova's batched commits), the L-fold of the evaluation argument is
+kernel 4 (csrc/hyrax_bind.cu, ``hyrax_bind`` below), the verifier's fold
+of the row commitments is the runtime-point MSM (kernel 5, ec/msm.py),
+and the row-by-row folds of commitments (``fold_commitments``: the ZK
+NIFS, NeutronNova's instance folds) are the row-batched MSM (kernel C,
+ec/msm.py).  The IPA on the width-sized
 remainder, the direct openings of the ZK wrapper's small relaxed
 instance and the folds below 64 points run on the host.
 """
@@ -171,15 +173,51 @@ class HyraxPCS:
                is_small: bool = False) -> HyraxCommitment:
         """Commit to canonical values ``v``: one comb row MSM per row of
         ``num_cols`` values plus r_i * h (hyrax_pc.rs:230-300)."""
+        return self.commit_from_raw_batch(ck, self.commit_raw_batch(ck, [v], is_small),
+                                          [r])[0]
+
+    def commit_raw_batch(self, ck: HyraxCommitmentKey, vecs: list,
+                         is_small: bool = False) -> list[torch.Tensor]:
+        """Unblinded row MSMs of several vectors of canonical values in one
+        comb launch, their rows stacked on the kernel's row axis
+        (pcs/hyrax.py:166-191 of the JAX package) -> one (R_i, 3, 8)
+        Jacobian tensor per vector."""
         C = ck.num_cols
-        R = _div_ceil(len(v), C)
-        vals = list(v) + [0] * (R * C - len(v))
-        sc = to_device(vals, self.curve.scalar, ck.device).reshape(R, C, 8)
-        rows = ck.comb(SMALL_BITS if is_small else FULL_BITS).rows_msm(sc)
-        bl = self._blinds_times_h(ck, r.blind)
-        pts = to_affine(torch.cat([rows, bl]), self.curve)
-        return HyraxCommitment([self.curve.add(a, b)
-                                for a, b in zip(pts[:R], pts[R:])])
+        rows, vals = [], []
+        for v in vecs:
+            R = _div_ceil(len(v), C)
+            rows.append(R)
+            vals += list(v) + [0] * (R * C - len(v))
+        sc = to_device(vals, self.curve.scalar, ck.device).reshape(-1, C, 8)
+        raw = ck.comb(SMALL_BITS if is_small else FULL_BITS).rows_msm(sc)
+        return list(torch.split(raw, rows))
+
+    def commit_from_raw_batch(self, ck: HyraxCommitmentKey, raws: list,
+                              rs: list[HyraxBlind]) -> list[HyraxCommitment]:
+        """Blind the raw row MSMs of ``commit_raw_batch``: every blind's
+        multiple of h in one comb launch, then row + r_i h per row
+        (pcs/hyrax.py:193-211 of the JAX package)."""
+        bl = self._blinds_times_h(ck, [b for r in rs for b in r.blind])
+        pts = to_affine(torch.cat([*raws, bl]), self.curve)
+        n = bl.shape[0]
+        sums = [self.curve.add(a, b) for a, b in zip(pts[:n], pts[n:])]
+        out, lo = [], 0
+        for raw in raws:
+            out.append(HyraxCommitment(sums[lo : lo + raw.shape[0]]))
+            lo += raw.shape[0]
+        return out
+
+    def commit_zeros_batch(self, ck: HyraxCommitmentKey,
+                           rs: list[HyraxBlind]) -> list[HyraxCommitment]:
+        """``commit_zeros`` of several blinds in one comb launch."""
+        rows = [len(r.blind) for r in rs]
+        flat = [b for r in rs for b in r.blind]
+        pts = to_affine(self._blinds_times_h(ck, flat), self.curve) if flat else []
+        out, lo = [], 0
+        for R in rows:
+            out.append(HyraxCommitment(pts[lo : lo + R]))
+            lo += R
+        return out
 
     def commit_host(self, ck: HyraxCommitmentKey, v: list[int], r: HyraxBlind,
                     is_small: bool = False) -> HyraxCommitment:
@@ -196,10 +234,7 @@ class HyraxPCS:
     def commit_zeros(self, ck: HyraxCommitmentKey, n: int,
                      r: HyraxBlind) -> HyraxCommitment:
         """Blind-only commitment r_i * h per row (hyrax_pc.rs:305-319)."""
-        if not r.blind:
-            return HyraxCommitment([])
-        return HyraxCommitment(to_affine(self._blinds_times_h(ck, r.blind),
-                                         self.curve))
+        return self.commit_zeros_batch(ck, [r])[0]
 
     def rerandomize_commitment(self, ck: HyraxCommitmentKey, comm: HyraxCommitment,
                                r_old: HyraxBlind, r_new: HyraxBlind) -> HyraxCommitment:
@@ -392,6 +427,33 @@ class HyraxPCS:
             return HyraxCommitment(to_affine(out, self.curve))
         return HyraxCommitment([msm_points(list(weights), row, self.curve, device)
                                 for row in pts])
+
+    def fold_commitments_partial(self, comms: list[HyraxCommitment],
+                                 weights: list[int], num_data_rows: int,
+                                 folded_blind: HyraxBlind, ck: HyraxCommitmentKey,
+                                 device) -> HyraxCommitment:
+        """Fold only the first ``num_data_rows`` rows; the rows after them
+        are blind-only in every commitment (commits to zeros), so the
+        folded row is folded_blind[row] h (hyrax_pc.rs:821-874; the JAX
+        package's pcs/hyrax.py:611-640): one comb launch for 8 rows or
+        more, host multiples of h below."""
+        if not comms or len(comms) != len(weights):
+            raise InvalidInputLengthError("fold_commitments_partial: bad input")
+        total_rows = len(comms[0].comm)
+        if num_data_rows > total_rows:
+            raise InvalidInputLengthError(
+                f"fold_commitments_partial: num_data_rows {num_data_rows} "
+                f"exceeds total_rows {total_rows}")
+        if num_data_rows == total_rows:
+            return self.fold_commitments(comms, weights, device)
+        data = self.fold_commitments(
+            [HyraxCommitment(cm.comm[:num_data_rows]) for cm in comms], weights, device)
+        rest_blinds = folded_blind.blind[num_data_rows:]
+        if len(rest_blinds) >= 8:
+            rest = to_affine(self._blinds_times_h(ck, rest_blinds), self.curve)
+        else:
+            rest = [self.curve.scalar_mul(b, ck.h) for b in rest_blinds]
+        return HyraxCommitment(data.comm + rest)
 
     def fold_blinds(self, blinds: list[HyraxBlind], weights: list[int]) -> HyraxBlind:
         if len(blinds) != len(weights) or not blinds:

@@ -26,7 +26,8 @@ from ..frontend.constraint_system import ConstraintSystem, SpartanCircuitAPI
 from ..pcs.hyrax import HyraxCommitment
 from ..sumcheck.device import DOT, eq_factors, eq_table, round_evals
 from ..transcript.transcript import Transcript
-from .sparse import DeviceCSR, SparseMatrix, mont_values, spmv, spmv_combine
+from .sparse import (DeviceCSR, SparseMatrix, mont_values, spmv, spmv_batched,
+                     spmv_combine)
 
 DEFAULT_COMMITMENT_WIDTH = 2048  # reference lib.rs:63
 
@@ -101,6 +102,26 @@ class SplitR1CSShape:
         self.C = apply_pad(C)
 
         self.dev: Optional[dict] = None
+
+    @staticmethod
+    def equalize(S_a: "SplitR1CSShape", S_b: "SplitR1CSShape") -> None:
+        """Grow both shapes to common (num_cons, num_vars) by extending
+        num_rest and shifting the public and challenge columns (reference
+        equalize, r1cs/mod.rs:913-974).  Call before attach_device."""
+        num_cons_p = max(S_a.num_cons, S_b.num_cons)
+        num_vars_p = max(S_a.num_vars, S_b.num_vars)
+        for S in (S_a, S_b):
+            if S.dev is not None:
+                raise ValueError("equalize must run before attach_device")
+            shift = num_vars_p - S.num_vars
+            for M in (S.A, S.B, S.C):
+                if shift:
+                    M.indices = [c + shift if c >= S.num_vars else c
+                                 for c in M.indices]
+                M.cols += shift
+                M.indptr.extend([M.indptr[-1]] * (num_cons_p - S.num_cons))
+            S.num_rest = num_vars_p - (S.num_shared + S.num_precommitted)
+            S.num_cons = num_cons_p
 
     @property
     def num_vars(self) -> int:
@@ -191,6 +212,12 @@ class SplitR1CSShape:
         """(num_cols, 8) Montgomery z -> (3, num_cons, 8) Az, Bz, Cz
         (reference multiply_vec, r1cs/mod.rs:1075-1107)."""
         return spmv(self._mats(), z, self.field)
+
+    def multiply_vec_batched(self, z: torch.Tensor) -> torch.Tensor:
+        """(I, num_cols, 8) Montgomery z of I instances -> (3, I, num_cons, 8)
+        Az, Bz, Cz, in one launch (reference multiply_vec_batched,
+        r1cs/mod.rs:1132-1166)."""
+        return spmv_batched(self._mats(), z, self.field)
 
     def multiply_vec_precommitted(self, z_prefix: torch.Tensor) -> torch.Tensor:
         """Cacheable products over the shared + precommitted columns

@@ -4,9 +4,9 @@
 as (same layout and digest bytes as the JAX package's); its host SpMV
 serves the verifier circuit's small shapes.  ``DeviceCSR``
 holds one matrix on a device: int32 row offsets and column indices and
-each coefficient in Montgomery form.  ``spmv``/``spmv_combine`` launch
-kernel 1 (csrc/spmv.cu) on CUDA tensors and run the plain version on CPU
-tensors.
+each coefficient in Montgomery form.  ``spmv``/``spmv_combine``/
+``spmv_batched`` launch kernel 1 (csrc/spmv.cu) on CUDA tensors and run
+the plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -19,9 +19,10 @@ import torch
 from ..field import ops
 from ..field.constants import FieldSpec
 from ..field.limbs import ints_to_limbs_np
-from ..utils.cuda import CudaKernel, I, P, check_cuda, fe_words, field_words
+from ..utils.cuda import SZ, CudaKernel, I, P, check_cuda, fe_words, field_words
 
-SPMV = CudaKernel("spmv", {"sp2_spmv": [I, I] + [P] * 12 + [I, P, P]})
+SPMV = CudaKernel("spmv", {"sp2_spmv": [I, I] + [P] * 12 + [I, P, P],
+                           "sp2_spmv_batched": [I, I, SZ] + [P] * 11 + [P, P]})
 
 
 @dataclass
@@ -166,6 +167,11 @@ def spmv_combine_plain(mats: list, z: torch.Tensor, r: int,
                                    spec), spec)
 
 
+def spmv_batched_plain(mats: list, z: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    """Plain version of ``spmv_batched``."""
+    return torch.stack([spmv_plain(mats, zi, spec) for zi in z], 1)
+
+
 def _launch(mats: list, z: torch.Tensor, spec: FieldSpec, prefix, r: int,
             combine: int, out: torch.Tensor) -> None:
     rows = mats[0].rows
@@ -175,14 +181,20 @@ def _launch(mats: list, z: torch.Tensor, spec: FieldSpec, prefix, r: int,
                *([prefix] if prefix is not None else []))
     check_cuda(*(t for m in mats for t in (m.indptr, m.indices)),
                dtype=torch.int32)
-    if z.dim() != 2 or z.shape[1] != 8:
-        raise ValueError("spmv: z must be (n, 8)")
+    if z.dim() not in (2, 3) or z.shape[-1] != 8:
+        raise ValueError("spmv: z must be (n, 8) or (I, n, 8)")
     if prefix is not None and prefix.shape != (len(mats), rows, 8):
         raise ValueError("spmv: prefix must be (matrices, rows, 8)")
     ptrs = []
     for k in range(3):
         m = mats[min(k, len(mats) - 1)]
         ptrs += [m.indptr.data_ptr(), m.indices.data_ptr(), m.vals.data_ptr()]
+    if z.dim() == 3:  # I instances, A, B and C
+        if len(mats) != 3 or prefix is not None or combine:
+            raise ValueError("spmv_batched: three matrices, no prefix")
+        SPMV.call("sp2_spmv_batched", rows, z.shape[0], z.shape[1], *ptrs, z.data_ptr(),
+                  fe_words(0), out.data_ptr(), field_words(spec))
+        return
     SPMV.call("sp2_spmv", rows, len(mats), *ptrs, z.data_ptr(),
               prefix.data_ptr() if prefix is not None else None,
               fe_words(spec.to_mont(r)), combine, out.data_ptr(),
@@ -210,3 +222,17 @@ def spmv_combine(mats: list, z: torch.Tensor, r: int,
     _launch(mats, z, spec, None, r, 1, out)
     return out
 
+
+
+def spmv_batched(mats: list, z: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    """(k, I, rows, 8): out[y, i] = M_y z[i] for I instances' vectors z
+    (I, n, 8), one launch for every matrix and instance (the JAX
+    package's spmv_apply_batched, r1cs/sparse.py:392)."""
+    if z.device.type == "cpu":
+        return spmv_batched_plain(mats, z, spec)
+    if z.dim() != 3:
+        raise ValueError("spmv_batched: z must be (I, n, 8)")
+    out = torch.empty(len(mats), z.shape[0], mats[0].rows, 8, dtype=torch.int32,
+                      device=z.device)
+    _launch(mats, z, spec, None, 0, 0, out)
+    return out

@@ -86,6 +86,23 @@ class PrecommittedState:
     # cached prefix Az/Bz/Cz products, (3, num_cons, 8) (spartan.rs:176-216)
     matvec_cache: Optional[torch.Tensor] = None
 
+    def clone_after_shared(self) -> "PrecommittedState":
+        """Per-step copy of the shared-phase state (NeutronNova preps one
+        shared witness and clones it for every step circuit,
+        neutronnova_zk.rs:1495-1509): shares the commitments and the
+        shared handles, copies the lists a step's synthesis changes."""
+        cs = ConstraintSystem(self.cs.field, shape_mode=False)
+        cs.num_aux = self.cs.num_aux
+        cs.aux_assignment = list(self.cs.aux_assignment)
+        cs.input_assignment = list(self.cs.input_assignment)
+        return PrecommittedState(
+            cs=cs, shared=self.shared, precommitted=list(self.precommitted),
+            W=list(self.W), comm_W_shared=self.comm_W_shared,
+            r_W_shared=self.r_W_shared,
+            comm_W_precommitted=self.comm_W_precommitted,
+            r_W_precommitted=self.r_W_precommitted, W_prefix=self.W_prefix,
+            matvec_cache=self.matvec_cache)
+
 
 @dataclass
 class SpartanPrepSNARK:
@@ -129,10 +146,9 @@ def shared_witness(engine: Engine, S: SplitR1CSShape, ck, circuit,
                              comm_W_shared=comm, r_W_shared=blind)
 
 
-def precommitted_witness(engine: Engine, ps: PrecommittedState,
-                         S: SplitR1CSShape, ck, circuit, is_small: bool,
-                         rng=None) -> None:
-    """bellpepper/r1cs.rs:359-409."""
+def _precommitted_segment(ps: PrecommittedState, S: SplitR1CSShape,
+                          circuit) -> None:
+    """Synthesize the precommitted phase into ps.W."""
     precommitted = circuit.precommitted(ps.cs, ps.shared)
     aux = ps.cs.aux_assignment
     lo = S.num_shared_unpadded
@@ -140,12 +156,40 @@ def precommitted_witness(engine: Engine, ps: PrecommittedState,
         raise IncorrectWitnessError("precommitted variables not allocated correctly")
     ps.W[S.num_shared : S.num_shared + S.num_precommitted_unpadded] = aux[
         lo : lo + S.num_precommitted_unpadded]
+    ps.precommitted = precommitted
+
+
+def precommitted_witness(engine: Engine, ps: PrecommittedState,
+                         S: SplitR1CSShape, ck, circuit, is_small: bool,
+                         rng=None) -> None:
+    """bellpepper/r1cs.rs:359-409."""
+    _precommitted_segment(ps, S, circuit)
     if S.num_precommitted_unpadded > 0:
         blind = engine.pcs.blind(ck, S.num_precommitted, rng=rng)
         seg = ps.W[S.num_shared : S.num_shared + S.num_precommitted]
         ps.comm_W_precommitted = engine.pcs.commit(ck, seg, blind, is_small)
         ps.r_W_precommitted = blind
-    ps.precommitted = precommitted
+
+
+def precommitted_witness_batch(engine: Engine, ps_list: list, S: SplitR1CSShape,
+                               ck, circuits, is_small: bool, rng=None) -> None:
+    """``precommitted_witness`` of many states: each circuit synthesizes in
+    turn, then every blind is drawn (in state order, after all the
+    syntheses, as the JAX package draws them), and the segments are
+    committed together: one comb launch for all rows, one for the blinds
+    (neutronnova_zk.rs:1477-1603; the JAX package's spartan.py:192-228)."""
+    for ps, circ in zip(ps_list, circuits):
+        _precommitted_segment(ps, S, circ)
+    if S.num_precommitted_unpadded == 0:
+        return
+    pcs = engine.pcs
+    blinds = [pcs.blind(ck, S.num_precommitted, rng=rng) for _ in ps_list]
+    segs = [ps.W[S.num_shared : S.num_shared + S.num_precommitted] for ps in ps_list]
+    comms = pcs.commit_from_raw_batch(ck, pcs.commit_raw_batch(ck, segs, is_small),
+                                      blinds)
+    for ps, blind, comm in zip(ps_list, blinds, comms):
+        ps.comm_W_precommitted = comm
+        ps.r_W_precommitted = blind
 
 
 def cache_prefix(S: SplitR1CSShape, engine: Engine, ps: PrecommittedState) -> None:
@@ -158,13 +202,26 @@ def cache_prefix(S: SplitR1CSShape, engine: Engine, ps: PrecommittedState) -> No
         ps.matvec_cache = S.multiply_vec_precommitted(ps.W_prefix)
 
 
-def r1cs_instance_and_witness(engine: Engine, ps: PrecommittedState,
-                              S: SplitR1CSShape, ck, circuit, is_small: bool,
-                              transcript: Transcript, rng=None):
-    """bellpepper/r1cs.rs:411-537: absorb partial commitments, squeeze
-    challenges, synthesize the rest, commit it."""
-    pcs = engine.pcs
-    device = S.dev["device"]
+@dataclass
+class PendingInstance:
+    """An instance synthesized up to its rest commitment, so that a batch
+    of them (NeutronNova's steps) can commit their rest segments together
+    (the JAX package's spartan.py:229-242)."""
+
+    ps: PrecommittedState
+    challenges: list
+    r_W_rest: HyraxBlind
+    rest: Optional[list]  # the rest segment; None when it is all padding
+    is_small: bool
+    public_values: list
+
+
+def instance_witness_begin(engine: Engine, ps: PrecommittedState,
+                           S: SplitR1CSShape, ck, circuit, is_small: bool,
+                           transcript: Transcript, rng=None) -> PendingInstance:
+    """Phase 1 of bellpepper/r1cs.rs:411-537: absorb the partial
+    commitments, squeeze the challenges, synthesize the rest, draw its
+    blind."""
     if ps.comm_W_shared is not None:
         transcript.absorb_bytes(b"comm_W_shared",
                                 ps.comm_W_shared.to_transcript_bytes(engine.curve))
@@ -185,39 +242,85 @@ def r1cs_instance_and_witness(engine: Engine, ps: PrecommittedState,
         ps.W[lo : lo + S.num_rest_unpadded] = ps.cs.aux_assignment[
             prep_aux : prep_aux + S.num_rest_unpadded]
 
-    r_W_rest = pcs.blind(ck, S.num_rest, rng=rng)
+    r_W_rest = engine.pcs.blind(ck, S.num_rest, rng=rng)
     if lo and ps.W_prefix is None:
-        ps.W_prefix = _upload_mont(engine, ps.W[:lo], device)
+        ps.W_prefix = _upload_mont(engine, ps.W[:lo], S.dev["device"])
     if skip_synthesize:
         public_values = circuit.public_values()
     else:
         public_values = ps.cs.input_assignment[1 : 1 + S.num_public]
-
-    rest = ps.W[lo : lo + S.num_rest]
     if S.num_rest_unpadded == 0:
-        with span("commit_rest_zeros"):
-            comm_W_rest = pcs.commit_zeros(ck, S.num_rest, r_W_rest)
-        rest_mont = torch.zeros(S.num_rest, 8, dtype=torch.int32, device=device)
-    else:
-        actual_small = is_small or all(
-            v < (1 << 64) for v in ps.W[lo : lo + S.num_rest_unpadded])
-        with span("commit_rest"):
-            comm_W_rest = pcs.commit(ck, rest, r_W_rest, actual_small)
-        rest_mont = _upload_mont(engine, rest, device)
+        return PendingInstance(ps, challenges, r_W_rest, None, True, public_values)
+    small = is_small or all(v < (1 << 64) for v in ps.W[lo : lo + S.num_rest_unpadded])
+    return PendingInstance(ps, challenges, r_W_rest, ps.W[lo : lo + S.num_rest], small,
+                           public_values)
 
+
+def instance_witness_finish(engine: Engine, pend: PendingInstance, S: SplitR1CSShape,
+                            comm_W_rest: HyraxCommitment, transcript: Transcript):
+    """Phase 2: absorb the rest commitment -> (SplitR1CSInstance,
+    R1CSWitness with the witness on the shape's device)."""
+    ps = pend.ps
+    device = S.dev["device"]
     transcript.absorb_bytes(b"comm_W_rest", comm_W_rest.to_transcript_bytes(engine.curve))
     U = SplitR1CSInstance(
         comm_W_shared=ps.comm_W_shared,
         comm_W_precommitted=ps.comm_W_precommitted,
         comm_W_rest=comm_W_rest,
-        public_values=public_values,
-        challenges=challenges,
+        public_values=pend.public_values,
+        challenges=pend.challenges,
     )
     blinds = [b for b in (ps.r_W_shared, ps.r_W_precommitted) if b is not None]
-    blinds.append(r_W_rest)
+    blinds.append(pend.r_W_rest)
+    if pend.rest is None:
+        rest_mont = torch.zeros(S.num_rest, 8, dtype=torch.int32, device=device)
+    else:
+        rest_mont = _upload_mont(engine, pend.rest, device)
+    lo = S.num_shared + S.num_precommitted
     W_dev = torch.cat([ps.W_prefix, rest_mont]) if lo else rest_mont
-    W = R1CSWitness(W=W_dev, r_W=pcs.combine_blinds(blinds))
-    return U, W
+    return U, R1CSWitness(W=W_dev, r_W=engine.pcs.combine_blinds(blinds))
+
+
+def commit_pending_batch(engine: Engine, ck, S: SplitR1CSShape,
+                         pendings: list[PendingInstance]) -> list[HyraxCommitment]:
+    """The rest commitments of many pending instances: the all-padding
+    ones in one comb launch over their blinds, the others' rows in one
+    comb launch and their blinds in another (the JAX package's
+    spartan.py:338-373)."""
+    pcs = engine.pcs
+    out: list = [None] * len(pendings)
+    zeros = [i for i, p in enumerate(pendings) if p.rest is None]
+    live = [i for i, p in enumerate(pendings) if p.rest is not None]
+    if zeros:
+        with span("commit_rest_zeros_batch"):
+            comms = pcs.commit_zeros_batch(ck, [pendings[i].r_W_rest for i in zeros])
+        for i, cm in zip(zeros, comms):
+            out[i] = cm
+    if live:
+        with span("commit_rest_batch"):
+            raws = pcs.commit_raw_batch(ck, [pendings[i].rest for i in live],
+                                        all(pendings[i].is_small for i in live))
+            comms = pcs.commit_from_raw_batch(ck, raws,
+                                              [pendings[i].r_W_rest for i in live])
+        for i, cm in zip(live, comms):
+            out[i] = cm
+    return out
+
+
+def r1cs_instance_and_witness(engine: Engine, ps: PrecommittedState,
+                              S: SplitR1CSShape, ck, circuit, is_small: bool,
+                              transcript: Transcript, rng=None):
+    """bellpepper/r1cs.rs:411-537: absorb partial commitments, squeeze
+    challenges, synthesize the rest, commit it."""
+    pcs = engine.pcs
+    pend = instance_witness_begin(engine, ps, S, ck, circuit, is_small, transcript, rng)
+    if pend.rest is None:
+        with span("commit_rest_zeros"):
+            comm_W_rest = pcs.commit_zeros(ck, S.num_rest, pend.r_W_rest)
+    else:
+        with span("commit_rest"):
+            comm_W_rest = pcs.commit(ck, pend.rest, pend.r_W_rest, pend.is_small)
+    return instance_witness_finish(engine, pend, S, comm_W_rest, transcript)
 
 
 # ---------------------------------------------------------------------------

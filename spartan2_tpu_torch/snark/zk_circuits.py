@@ -2,8 +2,7 @@
 algebraic checks.
 
 Reference: src/zk.rs; the JAX package's snark/zk_circuits.py
-(SpartanVerifierCircuit and its gadgets; NeutronNova's verifier circuit
-comes with its own slice).  The SpartanVerifierCircuit constrains the
+(SpartanVerifierCircuit, NeutronNovaVerifierCircuit and their gadgets).  The SpartanVerifierCircuit constrains the
 non-ZK Spartan verifier trace across outer rounds + outer-final + inner
 rounds + inner-final + a dedicated eval_W commit round; Fiat-Shamir
 challenges are NOT encoded: they come from the multi-round commit
@@ -227,5 +226,198 @@ class SpartanVerifierCircuit:
             for _ in range(self.mr_commitment_width - 1):
                 alloc_zero(cs)
             return [eval_W], []
+
+        raise ValueError("bad round index")
+
+
+class NeutronNovaVerifierCircuit:
+    """Multi-round circuit for the NeutronNova verifier trace
+    (zk.rs:472-943): NIFS cubic rounds + NIFS-final + batched step/core
+    outer rounds + outer-final + batched inner rounds + inner-final +
+    two eval_W commit rounds.  Public values (in order): tau_at_rx,
+    eval_X_step, eval_X_core, eq_rho_at_rb, quotient_step, quotient_core.
+    """
+
+    def __init__(self, field: FieldSpec, num_rounds_b: int, num_rounds_x: int,
+                 num_rounds_y: int, mr_commitment_width: int):
+        self.field = field
+        self.nifs_polys: list[list[int]] = [[0] * 4 for _ in range(num_rounds_b)]
+        self.eq_rho_at_rb = 0
+        self.t_out_step = 0
+        self.outer_polys_step: list[list[int]] = [[0] * 4 for _ in range(num_rounds_x)]
+        self.outer_polys_core: list[list[int]] = [[0] * 4 for _ in range(num_rounds_x)]
+        self.claim_Az_step = self.claim_Bz_step = self.claim_Cz_step = 0
+        self.claim_Az_core = self.claim_Bz_core = self.claim_Cz_core = 0
+        self.tau_at_rx = 0
+        self.inner_polys_step: list[list[int]] = [[0] * 3 for _ in range(num_rounds_y)]
+        self.inner_polys_core: list[list[int]] = [[0] * 3 for _ in range(num_rounds_y)]
+        self.eval_W_step = self.eval_W_core = 0
+        self.eval_X_step = self.eval_X_core = 0
+        self.mr_commitment_width = mr_commitment_width
+
+    # -- round indices (zk.rs:539-578) --
+    def num_nifs_rounds(self) -> int:
+        return len(self.nifs_polys)
+
+    def idx_nifs_final(self) -> int:
+        return self.num_nifs_rounds()
+
+    def idx_outer_start(self) -> int:
+        return self.idx_nifs_final() + 1
+
+    def idx_outer_final(self) -> int:
+        return self.idx_outer_start() + len(self.outer_polys_step)
+
+    def idx_inner_start(self) -> int:
+        return self.idx_outer_final() + 1
+
+    def idx_inner_final(self) -> int:
+        return self.idx_inner_start() + len(self.inner_polys_step)
+
+    def idx_commit_w_step(self) -> int:
+        return self.idx_inner_final() + 1
+
+    def idx_commit_w_core(self) -> int:
+        return self.idx_commit_w_step() + 1
+
+    def num_challenges(self, round_index: int) -> int:
+        if round_index < self.num_nifs_rounds():
+            return 1
+        if round_index == self.idx_nifs_final():
+            return 0
+        if round_index < self.idx_inner_final():
+            return 1
+        if round_index in (self.idx_inner_final(), self.idx_commit_w_step(),
+                           self.idx_commit_w_core()):
+            return 0
+        raise ValueError("bad round index")
+
+    def num_rounds(self) -> int:
+        return self.idx_commit_w_core() + 1
+
+    def commitment_width(self) -> int:
+        return self.mr_commitment_width
+
+    def rounds(self, cs: ConstraintSystem, round_index: int,
+               prior_round_vars: list[list[Num]],
+               prev_challenges: list[list[Num]],
+               challenges: Optional[list[int]]) -> tuple[list[Num], list[Num]]:
+        chal0 = challenges[0] if challenges else None
+        sm = cs.shape_mode
+
+        def alloc_challenge_input() -> Num:
+            var = cs.alloc_input(chal0 if not sm else None)
+            return Num(var, chal0)
+
+        if round_index < self.num_nifs_rounds():
+            poly = alloc_coeffs(cs, self.nifs_polys[round_index])
+            if round_index == 0:
+                claim = alloc_zero(cs)
+            else:
+                r = alloc_challenge_input()
+                claim = eval_poly_horner(cs, prior_round_vars[round_index - 1], r)
+            enforce_sc_claim(cs, poly, claim)
+            return poly, []
+
+        if round_index == self.idx_nifs_final():
+            r = alloc_challenge_input()
+            claim = eval_poly_horner(cs, prior_round_vars[round_index - 1], r)
+            t_out_step = Num.alloc(cs, None if sm else self.t_out_step)
+            eq_rho_at_rb = Num.alloc(cs, None if sm else self.eq_rho_at_rb)
+            cs.enforce(lc((1, eq_rho_at_rb.var)), lc((1, t_out_step.var)),
+                       lc((1, claim.var)))
+            return [eq_rho_at_rb, t_out_step], []
+
+        if self.idx_outer_start() <= round_index < self.idx_outer_final():
+            i = round_index - self.idx_outer_start()
+            poly_step = alloc_coeffs(cs, self.outer_polys_step[i])
+            poly_core = alloc_coeffs(cs, self.outer_polys_core[i])
+            if i == 0:
+                claim_step = prior_round_vars[round_index - 1][1]
+                claim_core = alloc_zero(cs)
+            else:
+                r = alloc_challenge_input()
+                claim_step = eval_poly_horner(
+                    cs, prior_round_vars[round_index - 1][0:4], r)
+                claim_core = eval_poly_horner(
+                    cs, prior_round_vars[round_index - 1][4:8], r)
+            enforce_sc_claim(cs, poly_step, claim_step)
+            enforce_sc_claim(cs, poly_core, claim_core)
+            return poly_step + poly_core, []
+
+        if round_index == self.idx_outer_final():
+            r = alloc_challenge_input()
+            claim_step = eval_poly_horner(
+                cs, prior_round_vars[round_index - 1][0:4], r)
+            claim_core = eval_poly_horner(
+                cs, prior_round_vars[round_index - 1][4:8], r)
+            cAs = Num.alloc(cs, None if sm else self.claim_Az_step)
+            cBs = Num.alloc(cs, None if sm else self.claim_Bz_step)
+            cCs = Num.alloc(cs, None if sm else self.claim_Cz_step)
+            cAc = Num.alloc(cs, None if sm else self.claim_Az_core)
+            cBc = Num.alloc(cs, None if sm else self.claim_Bz_core)
+            cCc = Num.alloc(cs, None if sm else self.claim_Cz_core)
+            tau_at_rx = Num.alloc(cs, None if sm else self.tau_at_rx)
+            enforce_outer_sc_final_check(cs, cAs, cBs, cCs, tau_at_rx, claim_step)
+            enforce_outer_sc_final_check(cs, cAc, cBc, cCc, tau_at_rx, claim_core)
+            return [cAs, cBs, cCs, cAc, cBc, cCc, tau_at_rx], []
+
+        if self.idx_inner_start() <= round_index < self.idx_inner_final():
+            idx = round_index - self.idx_inner_start()
+            poly_step = alloc_coeffs(cs, self.inner_polys_step[idx])
+            poly_core = alloc_coeffs(cs, self.inner_polys_core[idx])
+            r = alloc_challenge_input()
+            if idx == 0:
+                r_sq = r.square(cs)
+                co = prior_round_vars[self.idx_outer_final()]
+                claim_step = compute_joint_claim(cs, co[0], co[1], co[2], r, r_sq)
+                claim_core = compute_joint_claim(cs, co[3], co[4], co[5], r, r_sq)
+            else:
+                claim_step = eval_poly_horner(
+                    cs, prior_round_vars[round_index - 1][0:3], r)
+                claim_core = eval_poly_horner(
+                    cs, prior_round_vars[round_index - 1][3:6], r)
+            enforce_sc_claim(cs, poly_step, claim_step)
+            enforce_sc_claim(cs, poly_core, claim_core)
+            return poly_step + poly_core, [r]
+
+        if round_index == self.idx_inner_final():
+            r = alloc_challenge_input()
+            claim_step = eval_poly_horner(
+                cs, prior_round_vars[round_index - 1][0:3], r)
+            claim_core = eval_poly_horner(
+                cs, prior_round_vars[round_index - 1][3:6], r)
+            tau_at_rx = prior_round_vars[self.idx_outer_final()][6]
+            tau_at_rx.inputize(cs)
+            eval_X_step_var = cs.alloc_input(None if sm else self.eval_X_step)
+            eval_X_step = Num(eval_X_step_var, None if sm else self.eval_X_step)
+            eval_X_core_var = cs.alloc_input(None if sm else self.eval_X_core)
+            eval_X_core = Num(eval_X_core_var, None if sm else self.eval_X_core)
+            eq_rho_at_rb = prior_round_vars[self.idx_nifs_final()][0]
+            eq_rho_at_rb.inputize(cs)
+            eval_W_step = Num.alloc(cs, None if sm else self.eval_W_step)
+            eval_W_core = Num.alloc(cs, None if sm else self.eval_W_core)
+            r_y0 = prev_challenges[self.idx_inner_start() + 1][0]
+            enforce_inner_sc_final_check(cs, r_y0, eval_W_step, eval_X_step,
+                                         claim_step)
+            enforce_inner_sc_final_check(cs, r_y0, eval_W_core, eval_X_core,
+                                         claim_core)
+            return [eval_W_step, eval_W_core], []
+
+        if round_index == self.idx_commit_w_step():
+            eval_W = Num.alloc(cs, None if sm else self.eval_W_step)
+            prev = prior_round_vars[round_index - 1][0]
+            cs.enforce(lc((1, eval_W.var)), lc((1, ONE)), lc((1, prev.var)))
+            for _ in range(self.mr_commitment_width - 1):
+                alloc_zero(cs)
+            return [], []
+
+        if round_index == self.idx_commit_w_core():
+            eval_W = Num.alloc(cs, None if sm else self.eval_W_core)
+            prev = prior_round_vars[round_index - 2][1]
+            cs.enforce(lc((1, eval_W.var)), lc((1, ONE)), lc((1, prev.var)))
+            for _ in range(self.mr_commitment_width - 1):
+                alloc_zero(cs)
+            return [], []
 
         raise ValueError("bad round index")

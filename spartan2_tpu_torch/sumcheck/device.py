@@ -1,4 +1,4 @@
-"""Kernel 2 (csrc/sumcheck.cu): the eq table, sum-check round
+"""Kernel 2 (csrc/sumcheck.cu): the eq and power tables, sum-check round
 evaluations and binds batched over K instances (kernel A), and the
 structured inner round 0 (kernel B), with their plain versions.
 
@@ -20,6 +20,7 @@ from ..utils.cuda import SZ, CudaKernel, I, P, check_cuda, fe_words, field_words
 
 SUMCHECK = CudaKernel("sumcheck", {
     "sp2_eq_table": [I, P, P, P],
+    "sp2_pow_table": [I, P, P, P],
     "sp2_round_evals": [I, SZ, I, SZ, P, P, P, P, P, I, P, P],
     "sp2_bind": [SZ, I, SZ, I, I, P, P, P, P, P, P],
     "sp2_inner0_evals": [SZ, SZ, I, SZ, P, P, P, I, P, P],
@@ -96,6 +97,30 @@ def eq_table(factors: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
         raise ValueError("eq_table: factors must be (2m, 8)")
     out = torch.empty(1 << m, 8, dtype=torch.int32, device=factors.device)
     SUMCHECK.call("sp2_eq_table", m, factors.data_ptr(), out.data_ptr(),
+                  field_words(spec))
+    return out
+
+
+def pow_table_plain(gens: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    """Plain version of ``pow_table`` (doubling, g_0 drives the top bit)."""
+    evals = ops.const(1, spec, (1,), gens.device)
+    for j in range(gens.shape[0] - 1, -1, -1):
+        evals = torch.cat([evals, ops.mont_mul(evals, gens[j].expand_as(evals), spec)])
+    return evals
+
+
+def pow_table(gens: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    """(2^m, 8) Montgomery power table [t^k] from the (m, 8) Montgomery
+    powers g_j = t^(2^(m-1-j)) (polys/eq.py ``pow_generators``); entry
+    k's bit m-1-j selects g_j (polys/eq.py:97-113 of the JAX package)."""
+    if gens.device.type == "cpu":
+        return pow_table_plain(gens, spec)
+    m = gens.shape[0]
+    check_cuda(gens)
+    if gens.shape != (m, 8) or m > 40:
+        raise ValueError("pow_table: gens must be (m, 8), m <= 40")
+    out = torch.empty(1 << m, 8, dtype=torch.int32, device=gens.device)
+    SUMCHECK.call("sp2_pow_table", m, gens.data_ptr(), out.data_ptr(),
                   field_words(spec))
     return out
 

@@ -259,6 +259,41 @@ def spartan_zk_proof_from_bytes(data: bytes, engine):
                                eval_arg=HyraxEvaluationArgument(ipa))
 
 
+def neutronnova_proof_to_bytes(proof, engine) -> bytes:
+    w = Writer(engine.scalar, engine.curve)
+    w.opt_commitment(proof.comm_W_shared)
+    w.u64(len(proof.step_instances))
+    for u in proof.step_instances:
+        _write_split_instance(w, u)
+    _write_split_instance(w, proof.core_instance)
+    _write_multiround_instance(w, proof.U_verifier)
+    _write_relaxed_instance(w, proof.random_U)
+    w.commitment(proof.nifs.comm_T)
+    _write_relaxed_snark(w, proof.relaxed_snark)
+    w.ipa(proof.eval_arg.ipa)
+    return w.bytes_out()
+
+
+def neutronnova_proof_from_bytes(data: bytes, engine):
+    from ..r1cs.relaxed import NovaNIFS
+    from ..snark.neutronnova import NeutronNovaProof
+
+    r = Reader(engine.scalar, engine.curve, data)
+    comm_shared = r.opt_commitment()
+    steps = [_read_split_instance(r) for _ in range(r.u64())]
+    core = _read_split_instance(r)
+    U_verifier = _read_multiround_instance(r)
+    random_U = _read_relaxed_instance(r)
+    nifs = NovaNIFS(comm_T=r.commitment())
+    relaxed = _read_relaxed_snark(r)
+    ipa = r.ipa()
+    r.done()
+    return NeutronNovaProof(comm_W_shared=comm_shared, step_instances=steps,
+                            core_instance=core, U_verifier=U_verifier,
+                            random_U=random_U, nifs=nifs, relaxed_snark=relaxed,
+                            eval_arg=HyraxEvaluationArgument(ipa))
+
+
 # ---------------------------------------------------------------------------
 # keys / prep (checkpoint & resume; reference spartan.rs:42-124 derives
 # Serialize on ProverKey/VerifierKey/PrepSNARK)
@@ -381,13 +416,7 @@ def _read_opt_blind(r: Reader):
     return r.blind() if r.take(1) == b"\x01" else None
 
 
-def spartan_prep_to_bytes(prep, engine) -> bytes:
-    """Serialize a SpartanPrepSNARK: witness prefix values, partial
-    commitments and blinds, and the constraint-system assignments.
-    Device-side caches (limb planes, prefix mat-vec products) are
-    deterministic and rebuilt on load."""
-    ps = prep.ps
-    w = Writer(engine.scalar, engine.curve)
+def _write_precommitted_state(w: Writer, ps) -> None:
     w.scalars(ps.W)
     w.opt_commitment(ps.comm_W_shared)
     _opt_blind(w, ps.r_W_shared)
@@ -396,17 +425,15 @@ def spartan_prep_to_bytes(prep, engine) -> bytes:
     w.u64(ps.cs.num_aux)
     w.scalars(ps.cs.aux_assignment)
     w.scalars(ps.cs.input_assignment)
-    return w.bytes_out()
 
 
-def spartan_prep_from_bytes(data: bytes, engine, pk, circuit):
-    """Reload a SpartanPrepSNARK.  ``circuit`` re-synthesizes the
-    shared/precommitted variable handles (deterministic, cheap host
-    work); the expensive commitments come from the serialized state."""
+def _read_precommitted_state(r: Reader, engine, circuit):
+    """``circuit`` re-synthesizes the shared/precommitted variable handles
+    (deterministic, cheap host work); the expensive commitments come from
+    the serialized state."""
     from ..frontend.constraint_system import ConstraintSystem
-    from ..snark.spartan import PrecommittedState, SpartanPrepSNARK, cache_prefix
+    from ..snark.spartan import PrecommittedState
 
-    r = Reader(engine.scalar, engine.curve, data)
     W = r.scalars()
     comm_s = r.opt_commitment()
     blind_s = _read_opt_blind(r)
@@ -415,7 +442,6 @@ def spartan_prep_from_bytes(data: bytes, engine, pk, circuit):
     num_aux = r.u64()
     aux = r.scalars()
     inputs = r.scalars()
-    r.done()
 
     cs = ConstraintSystem(engine.scalar, shape_mode=False)
     shared = circuit.shared(cs)
@@ -423,12 +449,81 @@ def spartan_prep_from_bytes(data: bytes, engine, pk, circuit):
     cs.num_aux = num_aux
     cs.aux_assignment = aux
     cs.input_assignment = inputs
-
-    ps = PrecommittedState(
+    return PrecommittedState(
         cs=cs, shared=shared, precommitted=precommitted, W=W,
         comm_W_shared=comm_s, r_W_shared=blind_s,
         comm_W_precommitted=comm_p, r_W_precommitted=blind_p,
     )
+
+
+def spartan_prep_to_bytes(prep, engine) -> bytes:
+    """Serialize a SpartanPrepSNARK: witness prefix values, partial
+    commitments and blinds, and the constraint-system assignments.
+    Device-side caches (limb planes, prefix mat-vec products) are
+    deterministic and rebuilt on load."""
+    w = Writer(engine.scalar, engine.curve)
+    _write_precommitted_state(w, prep.ps)
+    return w.bytes_out()
+
+
+def spartan_prep_from_bytes(data: bytes, engine, pk, circuit):
+    """Reload a SpartanPrepSNARK (``circuit`` gives the variable handles)."""
+    from ..snark.spartan import SpartanPrepSNARK, cache_prefix
+
+    r = Reader(engine.scalar, engine.curve, data)
+    ps = _read_precommitted_state(r, engine, circuit)
+    r.done()
     # rebuild the deterministic device caches (mirrors prep_prove)
     cache_prefix(pk.S, engine, ps)
     return SpartanPrepSNARK(ps=ps)
+
+
+def neutronnova_keys_to_bytes(pk, num_steps: int) -> bytes:
+    """NeutronNova keys: the batch size (the verifier circuit's size
+    depends on it), both equalized shapes and the digest."""
+    w = Writer(pk.engine.scalar, pk.engine.curve)
+    w.u64(num_steps)
+    _write_shape(w, pk.S_step)
+    _write_shape(w, pk.S_core)
+    w.buf += pk.vk_digest
+    return w.bytes_out()
+
+
+def neutronnova_keys_from_bytes(data: bytes, engine, device="cuda"):
+    """-> (NeutronNovaProverKey, NeutronNovaVerifierKey) with device state
+    on ``device``; raises DigestError if the rebuilt keys' digest differs."""
+    from ..snark.neutronnova import NeutronNovaZkSNARK
+
+    r = Reader(engine.scalar, engine.curve, data)
+    num_steps = r.u64()
+    S_step = _read_shape(r)
+    S_core = _read_shape(r)
+    digest = r.take(32)
+    r.done()
+    pk, vk = NeutronNovaZkSNARK.setup_from_shapes(engine, S_step, S_core, num_steps,
+                                                  device)
+    if pk.vk_digest != digest:
+        raise DigestError("reloaded NeutronNova key digest mismatch")
+    return pk, vk
+
+
+def neutronnova_prep_to_bytes(prep, engine) -> bytes:
+    """NeutronNovaPrep: one precommitted state per step, then the core's."""
+    w = Writer(engine.scalar, engine.curve)
+    w.u64(len(prep.ps_step))
+    for ps in prep.ps_step:
+        _write_precommitted_state(w, ps)
+    _write_precommitted_state(w, prep.ps_core)
+    return w.bytes_out()
+
+
+def neutronnova_prep_from_bytes(data: bytes, engine, step_circuits, core_circuit):
+    from ..snark.neutronnova import NeutronNovaPrep
+
+    r = Reader(engine.scalar, engine.curve, data)
+    if r.u64() != len(step_circuits):
+        raise SpartanError("prep step count mismatch")
+    ps_step = [_read_precommitted_state(r, engine, c) for c in step_circuits]
+    ps_core = _read_precommitted_state(r, engine, core_circuit)
+    r.done()
+    return NeutronNovaPrep(ps_step=ps_step, ps_core=ps_core)

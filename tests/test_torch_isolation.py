@@ -43,6 +43,10 @@ import spartan2_tpu_torch.snark.zk_circuits
 import spartan2_tpu_torch.sumcheck.host
 import spartan2_tpu_torch.sumcheck.zk_device
 import spartan2_tpu_torch.utils.serde
+# and NeutronNova's
+import spartan2_tpu_torch.field.small_value
+import spartan2_tpu_torch.snark.neutronnova
+import spartan2_tpu_torch.sumcheck.nifs
 from tests.torch_helpers import CubicCircuit, det
 engine, circuit = get_engine("P256HyraxEngine"), CubicCircuit()
 pk, vk = SpartanSNARK.setup(engine, circuit, width=4, device="cpu")
@@ -58,7 +62,8 @@ from spartan2_tpu_torch.ec.msm import MSM
 from spartan2_tpu_torch.pcs.hyrax import HYRAX_BIND
 from spartan2_tpu_torch.r1cs.sparse import SPMV
 from spartan2_tpu_torch.sumcheck.device import SUMCHECK
-for k in (SPMV, SUMCHECK, COMB, HYRAX_BIND, MSM):
+from spartan2_tpu_torch.sumcheck.nifs import NIFS
+for k in (SPMV, SUMCHECK, COMB, HYRAX_BIND, MSM, NIFS):
     assert k.launches == 0 and k._lib is None, k.name
 print("isolated")
 """

@@ -12,11 +12,27 @@ Run from the repository root:
 
     JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden        # cubic_p256.bin
     JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --zk   # cubic_zk_p256.bin
+    SPARTAN2_NN_HOST=1 JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --nn
+    SPARTAN2_NN_HOST=1 JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --nn square
 
 The committed ``cubic_p256.bin`` was recorded with the JAX package of
 commit 4cf6d4bc4a04b6b518ace38bd3ac5e0ff6d2cd09, and ``cubic_zk_p256.bin``
 (through JAX's default device path) with the JAX package of commit
 e26eee5ee9a12d44319e1936090806f3e64ac20b.
+
+The NeutronNovaZkSNARK files hold one configuration each, both P256 at
+width 4 with tests/test_neutronnova.py's ``CoreCircuit`` as the core:
+``nn_square_p256.bin`` folds 3 ``SquareStepCircuit`` steps (x = 2, 5, 11;
+pads to 4, non-empty rest segment), ``nn_precommitted_p256.bin`` folds 7
+``PrecommittedStepCircuit`` steps (x = 2, 3, 5, 7, 11, 13, 17; pads to 8,
+truncated-rest fold, small-value NIFS round 0).  Both were recorded
+with the JAX package of commit 6c885122a9d3f75f5c8d47b1995fd3d2ca1bdfe9
+through its host NeutronNova path (SPARTAN2_NN_HOST=1, set in the
+recording process only).  Through the default device path, three
+recordings (each beside another) died after 13-53 minutes of XLA:CPU
+compiles with LLVM "Cannot allocate memory" errors.  The JAX package
+keeps the host path to cross-test the device path; the port follows the
+device path and proves to these bytes.
 
 File layout (all integers u64 little-endian):
     b"SP2GOLD1", width, prep_seed, prove_seed,
@@ -38,6 +54,11 @@ PROVE_SEED = 2
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "cubic_p256.bin")
 OUT_ZK = os.path.join(HERE, "cubic_zk_p256.bin")
+NN_STEPS = {"square": [2, 5, 11], "precommitted": [2, 3, 5, 7, 11, 13, 17]}
+
+
+def nn_path(name: str) -> str:
+    return os.path.join(HERE, f"nn_{name}_p256.bin")
 
 
 def det(seed: int):
@@ -128,8 +149,44 @@ def jax_prove(zk: bool = False) -> tuple[bytes, bytes, bytes]:
     return keys, prep_b, proof_to_bytes(proof, engine)
 
 
+def jax_nn_prove(name: str) -> tuple[bytes, bytes, bytes]:
+    """JAX NeutronNovaZkSNARK setup, prep_prove and prove of the ``name``
+    configuration from the fixed seeds."""
+    from spartan2_tpu.provider.engines import get_engine
+    from spartan2_tpu.snark.neutronnova import NeutronNovaZkSNARK as snark
+    from spartan2_tpu.utils import serde
+    from tests.test_neutronnova import (
+        CoreCircuit,
+        PrecommittedStepCircuit,
+        SquareStepCircuit,
+    )
+
+    step_cls = {"square": SquareStepCircuit,
+                "precommitted": PrecommittedStepCircuit}[name]
+    engine = get_engine("P256HyraxEngine")
+    steps = [step_cls(x) for x in NN_STEPS[name]]
+    core = CoreCircuit()
+    pk, _ = snark.setup(engine, steps[0], core, len(steps), width=WIDTH)
+    prep = snark.prep_prove(pk, steps, core, rng=det(PREP_SEED))
+    keys = serde.neutronnova_keys_to_bytes(pk, len(steps))
+    prep_b = serde.neutronnova_prep_to_bytes(prep, engine)
+    proof, _ = snark.prove(pk, steps, core, prep, rng=det(PROVE_SEED))
+    return keys, prep_b, serde.neutronnova_proof_to_bytes(proof, engine)
+
+
 def main() -> int:
-    zk = "--zk" in sys.argv[1:]
+    args = sys.argv[1:]
+    if "--nn" in args:
+        rest = args[args.index("--nn") + 1:]
+        for name in rest[:1] or list(NN_STEPS):
+            t0 = time.time()
+            keys, prep, proof = jax_nn_prove(name)
+            write_golden(nn_path(name), keys, prep, proof)
+            print(f"wrote {nn_path(name)}: keys {len(keys)} B, prep "
+                  f"{len(prep)} B, proof {len(proof)} B in "
+                  f"{time.time() - t0:.1f} s")
+        return 0
+    zk = "--zk" in args
     out = OUT_ZK if zk else OUT
     t0 = time.time()
     keys, prep, proof = jax_prove(zk)

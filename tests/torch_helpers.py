@@ -38,6 +38,87 @@ class CubicCircuit:
         y.inputize(cs)
 
 
+class SquareStepCircuit:
+    """y = x^2 + 3 with y public (tests/test_neutronnova.py's step circuit,
+    written against the port's frontend)."""
+
+    def __init__(self, x: int):
+        self.x = x
+
+    def public_values(self):
+        return [self.x * self.x + 3]
+
+    def shared(self, cs):
+        return []
+
+    def precommitted(self, cs, shared):
+        return []
+
+    def num_challenges(self):
+        return 0
+
+    def synthesize(self, cs, shared, precommitted, challenges):
+        x = Num.alloc(cs, self.x)
+        x_sq = x.square(cs)
+        y = Num.alloc(cs, None if cs.shape_mode else (x_sq.value + 3) % cs.field.modulus)
+        cs.enforce(lc((1, x_sq.var), (3, ONE)), lc((1, ONE)), lc((1, y.var)))
+        y.inputize(cs)
+
+
+class CoreCircuit:
+    """y = a * b with y = 42 public (tests/test_neutronnova.py)."""
+
+    def public_values(self):
+        return [42]
+
+    def shared(self, cs):
+        return []
+
+    def precommitted(self, cs, shared):
+        return []
+
+    def num_challenges(self):
+        return 0
+
+    def synthesize(self, cs, shared, precommitted, challenges):
+        a = Num.alloc(cs, 6)
+        b = Num.alloc(cs, 7)
+        y = a.mul(cs, b)
+        y.inputize(cs)
+
+
+class PrecommittedStepCircuit:
+    """y = x^2 + 3 with the whole witness in the precommitted phase and
+    six pinned extra variables (tests/test_neutronnova.py): the rest
+    segment is all padding, so the prover takes the truncated fold."""
+
+    def __init__(self, x: int):
+        self.x = x
+
+    def public_values(self):
+        return [self.x * self.x + 3]
+
+    def shared(self, cs):
+        return []
+
+    def precommitted(self, cs, shared):
+        x = Num.alloc(cs, self.x)
+        x_sq = x.square(cs)
+        y = Num.alloc(cs, None if cs.shape_mode else (x_sq.value + 3) % cs.field.modulus)
+        cs.enforce(lc((1, x_sq.var), (3, ONE)), lc((1, ONE)), lc((1, y.var)))
+        y.inputize(cs)
+        for i in range(6):
+            t = Num.alloc(cs, i)
+            cs.enforce(lc((1, t.var)), lc((1, ONE)), lc((i, ONE)))
+        return []
+
+    def num_challenges(self):
+        return 0
+
+    def synthesize(self, cs, shared, precommitted, challenges):
+        return None
+
+
 def det(seed: int):
     """bench.py's deterministic blind source: rng(q) -> int in [0, q)."""
     r = random.Random(seed)
