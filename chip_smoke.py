@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit, builds the six CUDA sources
+1. Prints the card's name and power limit, builds the nine CUDA sources
    from spartan2_tpu_torch/csrc/ (one nvcc per source, in parallel).
 2. Drives SpartanSNARK: setup, prep_prove, a warm-up prove and two timed
    proves on SHA-256 over a 1 KiB preimage (P256HyraxEngine, Hyrax width
@@ -29,18 +29,33 @@
    the two NeutronNova test configurations, from the JAX package's
    recorded keys, prep state and seeds (tests/torch_golden/): each proof
    must equal the recorded JAX proof byte for byte.
-6. Holds each kernel against its plain PyTorch version on the card, at the
+6. The device transcript and the enqueued sum-checks (kernels T, F, G):
+   (a) sp2_keccak256 on batches of 64 messages at lengths 0, 1, 135, 136,
+   137, 271, 272 and 1000 against the host Keccak; (b) a DeviceTranscript
+   sequence on the card against the host Transcript, with the hand-off
+   both ways; (c) the outer sum-check on SHA-256 1 KiB's Az/Bz/Cz (2^20,
+   peeled, zero_check) through the prove's driver against the
+   host-challenge driver (kernel A, a pull and a host squeeze per round):
+   coefficients, r_x, finals and transcript state equal, both timed end
+   to end, the device driver's rounds run under
+   torch.cuda.set_sync_debug_mode("error") (any host synchronization
+   before its one pull raises); (d) the same for the inner round 0 and
+   the quad rounds over 2^20; (e) the per-round Gruen prover at m = 12
+   with tau_0 = 0 and tau_1 = 1 on the card against its plain version.
+7. Holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, on inputs from a fixed seed: equality is exact
-   (tolerance 0: every output is an integer mod p).  Times kernel and
-   plain version with CUDA events (no copies inside a timed region), and
-   computes each kernel's bound from the bytes and 32-bit multiply-adds
-   this run's data needs.
-7. Prints one JSON line with the kernels, then the card, then
+   (tolerance 0: every output is an integer mod p, a byte or a digest).
+   Times kernel and plain version with CUDA events (no copies inside a
+   timed region), and computes each kernel's bound from the bytes, the
+   32-bit multiply-adds and the Keccak logic operations this run's data
+   needs.
+8. Prints one JSON line with the kernels, then the card, then
    {"ok": true, ...} as the last line.  Any failed check raises.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import random
 import subprocess
@@ -57,6 +72,13 @@ IMAD_PER_S = 132 * 64 * 1.98e9
 # A Montgomery product on 8 x 32-bit limbs: 64 partial products for a*b
 # and 64 for the reduction, each a 64-bit result (lo and hi multiply-add).
 IMAD_PER_MONT_MUL = 256
+# Keccak-f[1600] unrolled on 32-bit halves of its 64-bit lanes, a round:
+# theta 80 (a 5-way XOR is 2 three-input LOP3 a half, 20; the 5 rotates of
+# C by 1 are 2 funnel shifts each, 10; applying D is one LOP3 a half, 50),
+# rho 48 (24 rotates, 2 funnel shifts each), pi 0 (renaming), chi 50 (one
+# LOP3 a half), iota 2: 180 operations on the 64 integer lanes per SM,
+# counted against IMAD_PER_S like a multiply-add.
+KECCAK_F_OPS = 24 * 180
 MONT_MULS_PER_ADD = 16  # complete Jacobian addition (csrc/comb.cu pt_add)
 MONT_MULS_PER_DBL = 10
 PROOF_BYTES = 94324  # BENCH_r05.json proof_bytes (same wire format)
@@ -101,9 +123,9 @@ def once_ms(fn):
     return res, start.elapsed_time(end)
 
 
-def bound_ms(nbytes: float, mont_muls: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, mont_muls: float, int_ops: float = 0) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = mont_muls * IMAD_PER_MONT_MUL / IMAD_PER_S * 1e3
+    t_ops = (mont_muls * IMAD_PER_MONT_MUL + int_ops) / IMAD_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -152,10 +174,11 @@ NONZK_COUNTS = ("wrapper calls on the SpartanSNARK path: setup, prep_prove, "
 
 
 def kernel_record(name, replaces, launches, counts, ms, plain_ms, nbytes, muls,
-                  source=None):
-    """One kernel of the JSON line; its bound from the bytes and Montgomery
-    products the function needs for this run's data."""
-    b, by = bound_ms(nbytes, muls)
+                  source=None, int_ops=0):
+    """One kernel of the JSON line; its bound from the bytes, Montgomery
+    products and other 32-bit operations the function needs for this
+    run's data."""
+    b, by = bound_ms(nbytes, muls, int_ops)
     return {"name": name, "route": "cuda",
             "source": source or f"spartan2_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches, "counts": counts,
@@ -163,8 +186,8 @@ def kernel_record(name, replaces, launches, counts, ms, plain_ms, nbytes, muls,
             "bound_by": by, "library_ms": None}
 
 
-def detail_record(name, ms, plain_ms, nbytes, muls):
-    b, by = bound_ms(nbytes, muls)
+def detail_record(name, ms, plain_ms, nbytes, muls, int_ops=0):
+    b, by = bound_ms(nbytes, muls, int_ops)
     return {"name": name, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
             "bound_by": by}
 
@@ -309,7 +332,7 @@ def compare_kernels(pk, prep, proof, launches: dict):
         return run
 
     _, pms = once_ms(outer_round(round_evals_plain, bind_plain))
-    record_kernel("sumcheck", "spartan2_tpu/sumcheck/fused.py:213",
+    record_kernel("sumcheck", "spartan2_tpu/sumcheck/prove.py:244",
                   cuda_ms(outer_round(round_evals, bind), reps), pms,
                   4 * n * 32 + 4 * (n // 2) * 32, 10 * (n // 2))
     del copies
@@ -1094,6 +1117,355 @@ def compare_nn_kernels(pk, prep, proof, nn_launches: dict):
            "spartan2_tpu_torch/csrc/msm.cu")
     return out, detail
 
+KECCAK_LENGTHS = (0, 1, 135, 136, 137, 271, 272, 1000)
+
+
+def keccak_blocks(n_bytes: int) -> int:
+    """Keccak-f[1600] permutations that Keccak-256 of n_bytes needs."""
+    return n_bytes // 136 + 1
+
+
+def check_transcript(dev, launches: dict):
+    """(a) kernel T's Keccak against the host's, (b) a DeviceTranscript
+    sequence against the host Transcript; -> (kernel records, details)."""
+    import numpy as np
+
+    from spartan2_tpu_torch.field.limbs import limbs_to_ints, to_device
+    from spartan2_tpu_torch.provider.engines import get_engine
+    from spartan2_tpu_torch.transcript.device import (
+        DeviceTranscript, fe_bytes, host_bytes, keccak256_batch, keccak256_batch_plain,
+        squeeze, squeeze_plain)
+    from spartan2_tpu_torch.transcript.keccak import keccak256
+    from spartan2_tpu_torch.transcript.transcript import Transcript
+
+    F = get_engine("P256HyraxEngine").scalar
+    rng = np.random.default_rng(7)
+    detail = []
+    for L in KECCAK_LENGTHS:  # (a)
+        msgs = torch.from_numpy(rng.integers(0, 256, size=(64, L), dtype=np.uint8))
+        got = keccak256_batch(msgs.to(dev)).cpu()
+        want = torch.tensor([list(keccak256(m.numpy().tobytes())) for m in msgs],
+                            dtype=torch.uint8)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"sp2_keccak256 differs from the host Keccak at {L} bytes")
+    print(f"(a) sp2_keccak256 equals the host Keccak on 64 messages at each of "
+          f"{list(KECCAK_LENGTHS)} bytes", flush=True)
+    msgs = torch.from_numpy(rng.integers(0, 256, size=(64, 1000), dtype=np.uint8)).to(dev)
+    pms = once_ms(lambda: keccak256_batch_plain(msgs.cpu()))[1]
+    detail.append(detail_record("keccak256 batch 64 x 1000 bytes (one thread a message)",
+                                cuda_ms(lambda: keccak256_batch(msgs), 10), pms,
+                                64 * (1000 + 32), 0, 64 * keccak_blocks(1000) * KECCAK_F_OPS))
+    # latency floors of the one-block kernels (T's squeeze, F): a launch
+    # with one thread of work, and one thread's chain of 2 permutations
+    # (a round's 169-byte squeeze input is 2 blocks)
+    one = to_device([1], F, dev, mont=True)
+    detail.append(detail_record("launch floor: sp2_fe_bytes of one element",
+                                cuda_ms(lambda: fe_bytes(one, F, True), 100), None, 64, 0.5))
+    m169 = msgs[:1, :169].contiguous()
+    detail.append(detail_record("keccak256 of one 169-byte message (2 permutations)",
+                                cuda_ms(lambda: keccak256_batch(m169), 100), None, 201, 0,
+                                2 * KECCAK_F_OPS))
+
+    # (b) the same absorbs and squeezes on the card and on the host
+    vals = [random.Random(60 + i).randrange(F.modulus) for i in range(5)]
+    a = to_device(vals, F, dev, mont=True)
+    host = Transcript(F, b"SpartanSNARK")
+    td = DeviceTranscript(F, b"SpartanSNARK", device=dev)
+    for t in (host, td):
+        t.absorb_bytes(b"vk", bytes(range(32)))
+    host.absorb_scalars(b"vals", vals)
+    td.absorb_scalars_mont(b"vals", a)
+    host.absorb_scalar(b"one", vals[2])
+    td.absorb_scalar_mont(b"one", a[2])
+    for i in range(3):
+        if i == 1:
+            host.dom_sep(b"phase2")
+            td.dom_sep(b"phase2")
+        if host.squeeze(b"c") != limbs_to_ints(td.squeeze_mont(b"c"), F, mont=True)[0]:
+            raise RuntimeError("DeviceTranscript squeeze differs from the host's")
+    back = Transcript(F, b"other")
+    td.to_host(back)
+    if (back.state, back.round) != (host.state, host.round):
+        raise RuntimeError("DeviceTranscript hand-off to the host differs")
+    for t in (back, host):
+        t.absorb_bytes(b"x", b"123")
+    if back.squeeze(b"r") != host.squeeze(b"r"):
+        raise RuntimeError("host transcript after the hand-off differs")
+    td = DeviceTranscript.from_host(back, dev)
+    if td.squeeze_bytes(b"s").cpu().numpy().tobytes() != host.squeeze_bytes(b"s"):
+        raise RuntimeError("DeviceTranscript hand-off from the host differs")
+    print("(b) DeviceTranscript on the card equals the host Transcript: 3 squeezes, "
+          "hand-off both ways", flush=True)
+
+    # kernel T as the main path runs it: the claims_outer absorb of three
+    # finals and the squeeze of r (DeviceTranscript in SpartanSNARK.prove)
+    fin = to_device(vals[:3], F, dev, mont=True)
+    state = td.state.clone()
+    label = b"claims_outer"
+
+    def claims_r():
+        buf = torch.cat([host_bytes(label, dev), fe_bytes(fin, F, True).reshape(-1)])
+        return squeeze(buf, 7, state, b"r", F)
+
+    got = claims_r()
+    fin_cpu, st_cpu = fin.cpu(), state.cpu()
+
+    def plain():
+        buf = torch.cat([host_bytes(label, "cpu"), fe_bytes(fin_cpu, F, True).reshape(-1)])
+        return squeeze_plain(buf, 7, st_cpu, b"r", F)
+
+    want, pms = once_ms(plain)
+    if not (torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])):
+        raise RuntimeError("kernel T (fe_bytes + squeeze) differs from its plain version")
+    print("equal to plain: transcript (fe_bytes + squeeze, claims_outer and r)", flush=True)
+    msg_len = len(label) + 96 + 4 + 2 + 64 + 1
+    records = [kernel_record(
+        "transcript", "spartan2_tpu/transcript/device.py:133", launches["transcript"],
+        NONZK_COUNTS + " (sp2_fe_bytes and sp2_squeeze: the claims_outer absorb and "
+        "the squeeze of r, 2 per prove; the permutation also runs inside every "
+        "round_finish)", cuda_ms(claims_r, 20), pms,
+        # 3 from_mont (half a product each) and from_uniform (2 products)
+        3 * 32 + 64 + 64 + 32, 3 / 2 + 2, source="spartan2_tpu_torch/csrc/transcript.cu",
+        int_ops=2 * keccak_blocks(msg_len + 1) * KECCAK_F_OPS)]
+    return records, detail
+
+
+def _clone(t):
+    c = copy.copy(t)
+    c.buf = bytearray(t.buf)
+    return c
+
+
+def _timed(fn):
+    """(result, host ms) of fn() ended by a device synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def _no_sync(fn):
+    """fn() with any host synchronization an error (the rounds' claim)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _compressed(coeffs, F):
+    from spartan2_tpu_torch.field.limbs import limbs_to_ints
+
+    k = coeffs.shape[1]
+    v = limbs_to_ints(coeffs.reshape(-1, 8), F, mont=True)
+    return [[v[k * j]] + v[k * j + 2 : k * j + k] for j in range(coeffs.shape[0])]
+
+
+def check_sumchecks(pk, prep, circuit, launches: dict, expect_peeled: bool = True):
+    """(c)-(e): the device-transcript sum-checks against the host-challenge
+    drivers and their plain versions; kernels F and G against their plain
+    versions at the main path's shapes -> (kernel records, details)."""
+    from spartan2_tpu_torch.field.limbs import limbs_to_ints, to_device
+    from spartan2_tpu_torch.snark.spartan import SpartanSNARK
+    from spartan2_tpu_torch.sumcheck.device import (
+        CUBIC, DOT, cubiceq_evals, cubiceq_evals_plain, eq_factors, eq_table,
+        round_evals, round_partials)
+    from spartan2_tpu_torch.sumcheck.prove import (
+        CUBIC_EVALS, GRUEN, SumcheckProverCubic, SumcheckProverCubicEq, challenge,
+        prove_cubic_eq, prove_quad, round_finish)
+    from spartan2_tpu_torch.sumcheck.zk_device import inner_round0
+    from spartan2_tpu_torch.transcript.device import DeviceTranscript
+    from spartan2_tpu_torch.transcript.transcript import Transcript
+
+    engine, S = pk.engine, pk.S
+    F = engine.scalar
+    p = F.modulus
+    dev = pk.device
+    with torch.inference_mode():
+        transcript, U, W, z, taus, ABC = SpartanSNARK.instance(pk, circuit, prep, True,
+                                                               det(40))
+    m, eff = len(taus), S.num_cons_unpadded
+    peeled = 1 << (m - 1) < eff < 1 << m  # round 0 reads the upper half below eff
+    if peeled != expect_peeled:
+        raise RuntimeError(f"outer sum-check path: peeled {peeled}, expected {expect_peeled}")
+    phases = {}
+
+    # (c) the outer sum-check: the host-challenge driver and the prove's,
+    # each on its own copies; the device driver's rounds under sync debug
+    def outer_host():
+        t, v = _clone(transcript), ABC.clone()
+        return prove_cubic_eq(t, taus, v[0], v[1], v[2], F), t
+
+    def outer_device(pull=False):
+        td, v = DeviceTranscript.from_host(transcript, dev), ABC.clone()
+        out = _no_sync(lambda: SpartanSNARK.outer_sumcheck(F, td, v, taus, eff))
+        return (tuple(x.cpu() for x in (out[0], out[1], torch.stack(out[2]), td.state))
+                if pull else (out, td))
+
+    (proof_h, rx_h, fin_h), t_host = outer_host()
+    (coeffs, rx_pairs, fin), td = outer_device()
+    if (_compressed(coeffs, F) != [c.coeffs_except_linear for c in proof_h.compressed_polys]
+            or limbs_to_ints(rx_pairs[:, 0], F, mont=True) != rx_h
+            or limbs_to_ints(torch.stack(fin), F, mont=True) != fin_h
+            or td.state.cpu().numpy().tobytes() != t_host.state
+            or td.round != t_host.round):
+        raise RuntimeError("(c) the device-transcript outer sum-check differs from the "
+                           "host-challenge driver")
+
+    # (d) inner round 0 and the quad rounds over num_vars, from (c)'s state
+    nv, ne = S.num_vars, S.num_cols - S.num_vars
+    abc = S.bind_and_prepare_poly_ABC(rx_h, random.Random(41).randrange(p))
+    claim = round_evals(DOT, S.num_cols, [abc, z], F)[0]
+    claim_dev = to_device([claim], F, dev, mont=True)[0]
+
+    def inner_host():
+        t, a, zz = _clone(t_host), abc.clone(), z.clone()
+        r0, (poly0,), (claim0,) = inner_round0(F, [claim], a, zz, nv, ne,
+                                               lambda unis: challenge(t, unis[0]))
+        proof, rs, finals = prove_quad(t, claim0, a[:nv], zz[:nv], F)
+        return ([poly0.compress()] + proof.compressed_polys, [r0] + rs, finals), t
+
+    def inner_device(pull=False):
+        td, a, zz = DeviceTranscript.from_host(t_host, dev), abc.clone(), z.clone()
+        out = _no_sync(lambda: SpartanSNARK.inner_sumcheck(F, td, a, zz, claim_dev, nv, ne))
+        return tuple(x.cpu() for x in (*out, td.state)) if pull else (out, td)
+
+    (polys_h, ry_h, fin_i), t_host2 = inner_host()
+    (ci, ry_pairs, ez), td2 = inner_device()
+    if (_compressed(ci, F) != [c.coeffs_except_linear for c in polys_h]
+            or limbs_to_ints(ry_pairs[:, 0], F, mont=True) != ry_h
+            or limbs_to_ints(ez, F, mont=True)[0] != fin_i[1]
+            or td2.state.cpu().numpy().tobytes() != t_host2.state):
+        raise RuntimeError("(d) the device-transcript inner sum-check differs from the "
+                           "host-challenge driver")
+    # end to end, each ended by its results on the host, in turns
+    for name, host_fn, dev_fn in (("outer", outer_host, outer_device),
+                                  ("inner", inner_host, inner_device)):
+        for rep in range(3):
+            for kind, fn in (("host", host_fn), ("device", lambda: dev_fn(pull=True)))[
+                    ::1 if rep % 2 == 0 else -1]:
+                phases.setdefault(f"{name}_{kind}_driver_ms", []).append(_timed(fn)[1])
+    print(f"(c) outer sum-check 2^{m} ({'peeled, ' if peeled else ''}zero_check), "
+          f"{m} rounds, no host sync before the pull: equal to the host-challenge driver "
+          "(coefficients, r_x, finals, state)", flush=True)
+    print(f"(d) inner round 0 over {S.num_cols} and {len(ry_h) - 1} quad rounds over "
+          f"{nv}, no host sync before the pull: equal to the host-challenge driver",
+          flush=True)
+
+    # (e) the Gruen prover at m = 12 with tau_0 = 0, tau_1 = 1, and the
+    # explicit-eq cubic prover (kernel A CUBIC, F's CUBIC_EVALS mode)
+    gen = torch.Generator().manual_seed(12)
+    me = 12
+    taus_e = [0, 1] + [random.Random(70 + j).randrange(p) for j in range(me - 2)]
+    vecs = [rand_field(1 << me, F, gen, "cpu") for _ in range(3)]
+    for name, run in (
+            ("Gruen prover, m = 12, tau_0 = 0, tau_1 = 1",
+             lambda td, v, zero: SumcheckProverCubicEq(F).prove(td, *v, zero, taus_e)),
+            ("explicit-eq cubic prover, m = 12",
+             lambda td, v, zero: SumcheckProverCubic(F).prove(
+                 td, eq_table(eq_factors(taus_e, F, zero.device), F), *v, zero))):
+        outs = []
+        for d in (dev, "cpu"):
+            tde = DeviceTranscript.from_host(Transcript(F, b"gruen"), d)
+            v = [x.clone().to(d) for x in vecs]
+            c, rs, fe, cl = run(tde, v, torch.zeros(8, dtype=torch.int32, device=d))
+            outs.append([c.cpu(), rs.cpu(), torch.stack(fe).cpu(), cl.cpu(),
+                         tde.state.cpu()])
+        if not all(torch.equal(x, y) for x, y in zip(*outs)):
+            raise RuntimeError(f"(e) {name}: the card differs from the plain version")
+        print(f"(e) {name}: the card equals the plain version (coefficients, "
+              "challenges, finals, claim, state)", flush=True)
+    print("sum-check drivers (host ms): " + json.dumps(phases), flush=True)
+
+    # kernel G at the peeled round 0's shape and at round 1's (two-level)
+    out, detail = [], []
+    fh = m // 2
+    R, L0, half = 1 << (m - fh), 1 << (fh - 1), 1 << (m - 1)
+    hi_len = eff - half  # the upper half's rows below eff
+    from spartan2_tpu_torch.polys.eq import eq_evals_host
+    EL = to_device(eq_evals_host(F, taus[1:fh]), F, dev, mont=True)
+    ER = to_device(eq_evals_host(F, taus[fh:]), F, dev, mont=True)
+    A, B, C = ABC[0], ABC[1], ABC[2]
+
+    def g_case(name, args, zc):
+        got = cubiceq_evals(A, B, C, *args, zc, False, F)
+        want, pms = once_ms(lambda: cubiceq_evals_plain(A, B, C, *args, zc, False, F))
+        gs = [sum(col) % p for col in zip(*[limbs_to_ints(b, F, mont=True)
+                                            for b in got.cpu()])]
+        if gs != limbs_to_ints(want[0], F, mont=True):
+            raise RuntimeError(f"kernel G ({name}) differs from its plain version")
+        print(f"equal to plain: cubiceq_evals ({name})", flush=True)
+        return got, pms
+
+    peel_args = (half, hi_len, EL, ER, m - fh)
+    part, pms = g_case(f"peeled round 0, 2^{m}, upper half read below {hi_len} of {half}",
+                       peel_args, True)
+    # zero_check: A, B lower half, their live upper rows; 3 products a pair
+    # (the weight, (A_hi - A_lo)(B_hi - B_lo), and their product)
+    out.append(kernel_record(
+        "cubiceq", "spartan2_tpu/sumcheck/fused.py:307", launches["cubiceq"],
+        NONZK_COUNTS + " (one sp2_cubiceq_evals per outer round)",
+        cuda_ms(lambda: cubiceq_evals(A, B, C, *peel_args, True, False, F), 10), pms,
+        2 * (half + hi_len) * 32 + (L0 + R) * 32 + 3 * 32 * part.shape[0],
+        3 * half, source="spartan2_tpu_torch/csrc/cubiceq.cu"))
+    r1_args = (half // 2, half // 2, EL, ER, m - fh)
+    _, pms1 = g_case(f"round 1, 2^{m - 1}, two-level", r1_args, False)
+    detail.append(detail_record(
+        f"cubiceq_evals round 1 2^{m - 1} (t0 and tinf, two-level)",
+        cuda_ms(lambda: cubiceq_evals(A, B, C, *r1_args, False, False, F), 10), pms1,
+        3 * half * 32 + (L0 + R) * 32, 5 * (half // 2)))
+
+    # kernel F at the peeled round 0: its partial sums, a claim, P, state
+    ctx = torch.cat([to_device([0, 1], F, dev, mont=True),
+                     td.state.view(torch.int32).reshape(2, 8)])
+    consts = to_device([(1 - taus[0]) % p, (2 * taus[0] - 1) % p, (2 - 3 * taus[0]) % p,
+                        pow(taus[0], -1, p)], F, dev, mont=True)
+    slots = [torch.empty(4, 8, dtype=torch.int32, device=dev),
+             torch.empty(2, 8, dtype=torch.int32, device=dev)]
+    ctx_k = ctx.clone()
+    round_finish(GRUEN, part, ctx_k, *slots, 9, F, consts, True, False)
+    cpu = [t.cpu() for t in (part, ctx, consts)]
+    cslots = [torch.empty(4, 8, dtype=torch.int32), torch.empty(2, 8, dtype=torch.int32)]
+    _, pms = once_ms(lambda: round_finish(GRUEN, cpu[0], cpu[1], *cslots, 9, F, cpu[2],
+                                          True, False))
+    if not (torch.equal(ctx_k.cpu(), cpu[1]) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(slots, cslots))):
+        raise RuntimeError("kernel F differs from its plain version")
+    print("equal to plain: round_finish (Gruen, peeled round 0)", flush=True)
+    # F's CUBIC_EVALS mode on kernel A CUBIC's partial sums at 2^m
+    eqt = eq_table(eq_factors(taus, F, dev), F)
+    part_c = round_partials(CUBIC, 1 << m, [eqt, A, B, C], F)
+    ctx_c = torch.cat([to_device([random.Random(43).randrange(p), 1], F, dev, mont=True),
+                       td.state.view(torch.int32).reshape(2, 8)])
+    ctx_ck = ctx_c.clone()
+    round_finish(CUBIC_EVALS, part_c, ctx_ck, *slots, 9, F)
+    cpu_c = [t.cpu() for t in (part_c, ctx_c)]
+    _, pms_c = once_ms(lambda: round_finish(CUBIC_EVALS, cpu_c[0], cpu_c[1], *cslots, 9, F))
+    if not (torch.equal(ctx_ck.cpu(), cpu_c[1]) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(slots, cslots))):
+        raise RuntimeError("kernel F (CUBIC_EVALS) differs from its plain version")
+    print(f"equal to plain: round_finish (cubic evals, kernel A CUBIC at 2^{m})", flush=True)
+    msg_len = 1 + 3 * 32 + 4 + 2 + 64 + 1
+    out.append(kernel_record(
+        "round_finish", "spartan2_tpu/sumcheck/prove.py:188", launches["round_finish"],
+        NONZK_COUNTS + " (one sp2_round_finish per sum-check round, outer and inner)",
+        cuda_ms(lambda: round_finish(GRUEN, part, ctx.clone(), *slots, 9, F, consts, True,
+                                     False), 20), pms,
+        # Gruen algebra 7 products, 3 from_mont, from_uniform 2, Horner 3, P 2
+        part.numel() * 4 + 4 * 32 + 5 * 32 + 4 * 32 + 2 * 32 + 4 * 32, 15.5,
+        source="spartan2_tpu_torch/csrc/round_finish.cu",
+        int_ops=2 * keccak_blocks(msg_len + 1) * KECCAK_F_OPS))
+    # from_evals4 about 3 products, 3 from_mont, from_uniform 2, Horner 3
+    detail.append(detail_record(
+        "round_finish cubic evals (sc_cubic_step's round algebra and squeeze)",
+        cuda_ms(lambda: round_finish(CUBIC_EVALS, part_c, ctx_c.clone(), *slots, 9, F), 20),
+        pms_c, part_c.numel() * 4 + 4 * 32 + 4 * 32 + 2 * 32 + 4 * 32, 9.5,
+        int_ops=2 * keccak_blocks(msg_len + 1) * KECCAK_F_OPS))
+    return out, detail
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1105,13 +1477,16 @@ def main() -> int:
     from spartan2_tpu_torch.pcs.hyrax import HYRAX_BIND
     from spartan2_tpu_torch.provider.engines import get_engine
     from spartan2_tpu_torch.r1cs.sparse import SPMV
-    from spartan2_tpu_torch.sumcheck.device import SUMCHECK
+    from spartan2_tpu_torch.sumcheck.device import CUBICEQ, SUMCHECK
     from spartan2_tpu_torch.sumcheck.nifs import NIFS
+    from spartan2_tpu_torch.sumcheck.prove import ROUND_FINISH
+    from spartan2_tpu_torch.transcript.device import TRANSCRIPT
     from spartan2_tpu_torch.utils.cuda import build_all
 
     card = card_line()
     print(f"card: {card}", flush=True)
-    spartan_kernels = [SPMV, SUMCHECK, COMB, HYRAX_BIND, MSM]
+    spartan_kernels = [SPMV, SUMCHECK, COMB, HYRAX_BIND, MSM, TRANSCRIPT, ROUND_FINISH,
+                       CUBICEQ]
     kernels = spartan_kernels + [NIFS]
     print(f"build: {build_all(kernels):.1f} s (nvcc, {len(kernels)} sources in "
           "parallel)", flush=True)
@@ -1131,12 +1506,14 @@ def main() -> int:
     check_golden_cubic(dev, zk=True)
     for name in ("square", "precommitted"):
         check_golden_nn(dev, name)
+    t_out, t_detail = check_transcript(dev, launches)
+    s_out, s_detail = check_sumchecks(pk, prep, circuit, launches)
     out, detail = compare_kernels(pk, prep, proof, launches)
     zk_out, zk_detail = compare_zk_kernels(pk.S, zk_proof, proof, zk_launches)
     nn_out, nn_detail = compare_nn_kernels(nn_pk, nn_prep, nn_proof, nn_launches)
-    print("kernel details (ms, bound_ms): " + json.dumps(detail + zk_detail + nn_detail),
-          flush=True)
-    print(json.dumps({"kernels": out + zk_out + nn_out}), flush=True)
+    print("kernel details (ms, bound_ms): " + json.dumps(
+        detail + zk_detail + nn_detail + t_detail + s_detail), flush=True)
+    print(json.dumps({"kernels": out + zk_out + nn_out + t_out + s_out}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,11 +22,11 @@ struct Pt {
   Fe X, Y, Z;
 };
 
-// Host: the 17 field words followed by a (ec/comb.py curve_words).
+// Host: the field words followed by a (ec/comb.py curve_words).
 static inline Curve curve_from_words(const uint32_t* w) {
   Curve c;
   c.F = field_from_words(w);
-  c.a = fe_from_words(w + 17);
+  c.a = fe_from_words(w + FIELD_WORDS);
   return c;
 }
 

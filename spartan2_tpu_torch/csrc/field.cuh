@@ -3,7 +3,8 @@
 //
 // Replaces the JAX package's FieldOps limb arithmetic
 // (spartan2_tpu/field/jnp_ops.py: add/sub :126-146, mont_mul :185,
-// to_mont/from_mont :211-228), which ran on (22, n) planes of 12-bit
+// to_mont/from_mont :211-228, from_uniform_bytes :302, the canonical byte
+// encodings :704/:722), which ran on (22, n) planes of 12-bit
 // limbs with R = 2^264.  Here an element is 8 little-endian 32-bit limbs,
 // 32 contiguous bytes (two 16-byte loads), R = 2^256, always canonical
 // in [0, p).  Both P-256 moduli exceed 2^255, so a + b and the Montgomery
@@ -29,20 +30,33 @@ struct Field {
   uint32_t p[8];
   uint32_t one[8];  // R mod p (Montgomery one)
   uint32_t n0;      // -p^{-1} mod 2^32
+  uint32_t r2[8];   // R^2 mod p
+  uint32_t r3[8];   // R^3 mod p
 };
 
-// Host: unpack the 17 words written by field_words() on the Python side.
+// Host: unpack the FIELD_WORDS words written by field_words() on the
+// Python side.
+constexpr int FIELD_WORDS = 33;
+
 static inline Field field_from_words(const uint32_t* w) {
   Field f;
   for (int i = 0; i < 8; ++i) f.p[i] = w[i];
   for (int i = 0; i < 8; ++i) f.one[i] = w[8 + i];
   f.n0 = w[16];
+  for (int i = 0; i < 8; ++i) f.r2[i] = w[17 + i];
+  for (int i = 0; i < 8; ++i) f.r3[i] = w[25 + i];
   return f;
 }
 
 static inline Fe fe_from_words(const uint32_t* w) {
   Fe x;
   for (int i = 0; i < 8; ++i) x.v[i] = w[i];
+  return x;
+}
+
+static inline Fe fe_zero_host() {
+  Fe x;
+  for (int i = 0; i < 8; ++i) x.v[i] = 0;
   return x;
 }
 
@@ -179,6 +193,36 @@ __device__ __forceinline__ Fe fe_from_mont(const Fe& a, const Field& F) {
   return fe_mul(a, one, F);
 }
 
+// 32 little-endian bytes (any alignment) -> 8 limbs, unreduced.
+__device__ __forceinline__ Fe fe_from_le_bytes(const uint8_t* b) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    r.v[i] = (uint32_t)b[4 * i] | ((uint32_t)b[4 * i + 1] << 8) |
+             ((uint32_t)b[4 * i + 2] << 16) | ((uint32_t)b[4 * i + 3] << 24);
+  return r;
+}
+
+__device__ __forceinline__ void fe_to_le_bytes(const Fe& a, uint8_t* b) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) b[i] = (uint8_t)(a.v[i >> 2] >> (8 * (i & 3)));
+}
+
+// A 512-bit little-endian integer (64 bytes) -> its Montgomery form mod p
+// (FieldOps.from_uniform_bytes): lo R + hi 2^256 R = REDC(lo R^2) +
+// REDC(hi R^3).  REDC(a b) with a < 2^256 and b < p stays below 2p, so the
+// unreduced halves need no reduction first.
+__device__ __forceinline__ Fe fe_from_uniform(const uint8_t* b, const Field& F) {
+  Fe r2, r3;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    r2.v[i] = F.r2[i];
+    r3.v[i] = F.r3[i];
+  }
+  return fe_add(fe_mul(fe_from_le_bytes(b), r2, F),
+                fe_mul(fe_from_le_bytes(b + 32), r3, F), F);
+}
+
 __device__ __forceinline__ Fe fe_shfl_down(const Fe& a, int off) {
   Fe r;
 #pragma unroll
@@ -204,6 +248,24 @@ __device__ __forceinline__ Fe block_sum(Fe x, const Field& F) {
   }
   __syncthreads();
   return x;
+}
+
+// Block sums of up to three per-thread sums into partial[(y, b, t)] for
+// grid row y = blockIdx.y and block b = blockIdx.x (NT threads a block).
+template <int NS, int NT>
+__device__ __forceinline__ void store_partials(Fe s0, Fe s1, Fe s2,
+                                               uint32_t* partial, const Field& F) {
+  const size_t at = ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * NS;
+  Fe t0 = block_sum<NT>(s0, F);
+  if (threadIdx.x == 0) fe_store(partial, at, t0);
+  if (NS > 1) {
+    Fe t1 = block_sum<NT>(s1, F);
+    if (threadIdx.x == 0) fe_store(partial, at + 1, t1);
+  }
+  if (NS > 2) {
+    Fe t2 = block_sum<NT>(s2, F);
+    if (threadIdx.x == 0) fe_store(partial, at + 2, t2);
+  }
 }
 
 }  // namespace sp2

@@ -1,9 +1,10 @@
 // Kernel 2: sum-check rounds and the eq table, with kernels A (rounds
 // batched over K instances) and B (the structured inner round 0).
 //
-// Replaces the JAX package's fused sum-check programs
-// (spartan2_tpu/sumcheck/fused.py: FusedSumcheckCubicEq._peel_kernel
-// :307 and _kernel :213, FusedSumcheckQuad._kernel :464), the eq tables
+// Replaces the sums of the JAX package's per-round provers
+// (spartan2_tpu/sumcheck/prove.py: sc_cubic_step :244 with its explicit eq
+// table, sc_quad_step/_tail :337/:344) and of the fused quad
+// (sumcheck/fused.py FusedSumcheckQuad._kernel :464), the eq tables
 // (polys/eq.py eq_evals_device :79, eq_table / eq_evals_device_oneshot
 // :116/:135), the power table of NeutronNova's NIFS (polys/eq.py
 // pow_evals_device :97, jitted by _pow_table_jit :121 under fastkey
@@ -11,10 +12,13 @@
 // :102/:116, zk_quad_step/_final :190/:201: kernel A) and the structured
 // inner round 0 (zk_device.py zk_inner0_evals/_bind :284/:308, which
 // also serves the non-ZK SpartanInnerRound0, sumcheck/prove.py:627:
-// kernel B).  The JAX programs ran every round and the Keccak transcript
-// inside one launch (non-ZK) or one step per round (ZK); here a round is
-// one evaluation launch pair and one bind launch, and the host squeezes
-// each challenge from the evaluations it pulls.
+// kernel B).  A non-ZK round is this file's partial sums (out = NULL
+// leaves them per block), the round finish (round_finish.cu: the round
+// polynomial, the device transcript's squeeze, r and 1 - r into device
+// memory) and a bind that reads r from there (sp2_bind_dev,
+// sp2_inner0_bind_dev), all enqueued with no host round trip.  The ZK and
+// NeutronNova rounds take their challenges from the host (a reduced
+// evaluation launch, a pull, sp2_bind with r by value).
 //
 // Entries:
 //   sp2_eq_table     out[i] = prod_j (bit_j(i) ? r_j : 1 - r_j), where r_0
@@ -39,6 +43,10 @@
 //                    and sum_{j<num_extra} (abc_{nv+j} - abc_j)(z_{nv+j} - z_j).
 //   sp2_inner0_bind  in place into width num_vars: x_j + r (x_{nv+j} - x_j)
 //                    for j < num_extra, (1 - r) x_j for the rest.
+//   sp2_bind_dev, sp2_inner0_bind_dev  the same binds of up to four vectors
+//                    of one instance, with r (and 1 - r) read from device
+//                    memory; the second is also the peeled outer round 0's
+//                    bind (live rows bound, the zero tail scaled by 1 - r).
 //
 // An explicit eq table is bound alongside A, B, C, so any tau works,
 // including tau in {0, 1} where the JAX Gruen split had to fall back.
@@ -88,24 +96,6 @@ __global__ void pow_table_kernel(int m, const Fe* gs, uint32_t* out, Field F) {
   }
 }
 
-// Block sums of up to three per-thread sums into partial[(k, b, t)] for
-// instance k = blockIdx.y and block b = blockIdx.x.
-template <int NS>
-__device__ __forceinline__ void store_partials(Fe s0, Fe s1, Fe s2,
-                                               uint32_t* partial, const Field& F) {
-  const size_t at = ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * NS;
-  Fe t0 = block_sum<NT>(s0, F);
-  if (threadIdx.x == 0) fe_store(partial, at, t0);
-  if (NS > 1) {
-    Fe t1 = block_sum<NT>(s1, F);
-    if (threadIdx.x == 0) fe_store(partial, at + 1, t1);
-  }
-  if (NS > 2) {
-    Fe t2 = block_sum<NT>(s2, F);
-    if (threadIdx.x == 0) fe_store(partial, at + 2, t2);
-  }
-}
-
 // Instance blockIdx.y's vector: ``stride`` elements of 8 words apart.
 __device__ __forceinline__ const uint32_t* inst(const uint32_t* v, size_t stride) {
   return v + (size_t)blockIdx.y * stride * 8;
@@ -150,7 +140,7 @@ __global__ void round_evals_kernel(size_t half, size_t stride, const uint32_t* e
     }
   }
   constexpr int NS = MODE == MODE_CUBIC ? 3 : (MODE == MODE_QUAD ? 2 : 1);
-  store_partials<NS>(s0, s1, s2, partial, F);
+  store_partials<NS, NT>(s0, s1, s2, partial, F);
 }
 
 // out[k, t] = sum_b partial[k, b, t], one block per instance k
@@ -186,7 +176,7 @@ __global__ void inner0_evals_kernel(size_t num_vars, size_t num_extra, size_t st
       s2 = fe_add(s2, fe_mul(da, dz, F), F);
     }
   }
-  store_partials<3>(s0, s1, s2, partial, F);
+  store_partials<3, NT>(s0, s1, s2, partial, F);
 }
 
 struct Vec4 {
@@ -201,10 +191,13 @@ __device__ __forceinline__ uint32_t* inst_vec(const Vec4& v, int shared,
   return v.p[blockIdx.y] + (size_t)blockIdx.z * stride * 8;
 }
 
+// r is the host value, or read from r_dev when that is given (the round
+// finish wrote it there).
 __global__ void bind_kernel(size_t half, size_t stride, int shared, Vec4 v, Fe r,
-                            Field F) {
+                            const uint32_t* r_dev, Field F) {
   uint32_t* x = inst_vec(v, shared, stride);
   if (x == nullptr) return;
+  if (r_dev != nullptr) r = fe_load(r_dev, 0);
   for (size_t j = blockIdx.x * (size_t)blockDim.x + threadIdx.x; j < half;
        j += (size_t)gridDim.x * blockDim.x) {
     Fe lo = fe_load(x, j);
@@ -214,10 +207,16 @@ __global__ void bind_kernel(size_t half, size_t stride, int shared, Vec4 v, Fe r
 }
 
 // Kernel B's bind, in place into width num_vars (each j reads only j and
-// num_vars + j, and writes j < num_vars).
+// num_vars + j, and writes j < num_vars); r and 1 - r are host values, or
+// read from r_dev[0] and r_dev[1] when that is given.
 __global__ void inner0_bind_kernel(size_t num_vars, size_t num_extra, size_t stride,
-                                   Vec4 v, Fe r, Fe one_minus_r, Field F) {
+                                   Vec4 v, Fe r, Fe one_minus_r, const uint32_t* r_dev,
+                                   Field F) {
   uint32_t* x = inst_vec(v, 0, stride);
+  if (r_dev != nullptr) {
+    r = fe_load(r_dev, 0);
+    one_minus_r = fe_load(r_dev, 1);
+  }
   for (size_t j = blockIdx.x * (size_t)blockDim.x + threadIdx.x; j < num_vars;
        j += (size_t)gridDim.x * blockDim.x) {
     Fe lo = fe_load(x, j);
@@ -285,7 +284,7 @@ extern "C" int sp2_round_evals(int mode, size_t half, int K, size_t stride,
     return (int)cudaErrorInvalidValue;
   }
   int err = (int)cudaGetLastError();
-  if (err) return err;
+  if (err || out == nullptr) return err;
   sum_partials_kernel<<<K, NT, 0, s>>>(nblocks, NS, part, (uint32_t*)out, F);
   return (int)cudaGetLastError();
 }
@@ -299,7 +298,18 @@ extern "C" int sp2_bind(size_t half, int K, size_t stride, int nvec, int shared,
   Vec4 v = {{(uint32_t*)v0, (uint32_t*)v1, (uint32_t*)v2, (uint32_t*)v3}};
   dim3 grid(blocks_for(half, 4096), (unsigned)nvec, (unsigned)K);
   bind_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(half, stride, shared, v,
-                                                     fe_from_words(r_words), F);
+                                                     fe_from_words(r_words), nullptr, F);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sp2_bind_dev(size_t half, int nvec, void* v0, void* v1, void* v2, void* v3,
+                            const void* r_dev, const uint32_t* field_words, void* stream) {
+  Field F = field_from_words(field_words);
+  if (nvec < 1 || nvec > 4) return (int)cudaErrorInvalidValue;
+  Vec4 v = {{(uint32_t*)v0, (uint32_t*)v1, (uint32_t*)v2, (uint32_t*)v3}};
+  dim3 grid(blocks_for(half, 4096), (unsigned)nvec, 1);
+  bind_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(half, 0, 0, v, fe_zero_host(),
+                                                     (const uint32_t*)r_dev, F);
   return (int)cudaGetLastError();
 }
 
@@ -315,7 +325,7 @@ extern "C" int sp2_inner0_evals(size_t num_vars, size_t num_extra, int K,
                                           (const uint32_t*)abc, (const uint32_t*)z,
                                           (uint32_t*)partial, F);
   int err = (int)cudaGetLastError();
-  if (err) return err;
+  if (err || out == nullptr) return err;
   sum_partials_kernel<<<K, NT, 0, s>>>(nblocks, 3, (const uint32_t*)partial,
                                        (uint32_t*)out, F);
   return (int)cudaGetLastError();
@@ -332,6 +342,18 @@ extern "C" int sp2_inner0_bind(size_t num_vars, size_t num_extra, int K,
   dim3 grid(blocks_for(num_vars, 4096), 2, (unsigned)K);
   inner0_bind_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
       num_vars, num_extra, stride, v, fe_from_words(r_words),
-      fe_from_words(one_minus_r_words), F);
+      fe_from_words(one_minus_r_words), nullptr, F);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sp2_inner0_bind_dev(size_t num_vars, size_t num_extra, int nvec, void* v0,
+                                   void* v1, void* v2, void* v3, const void* r_dev,
+                                   const uint32_t* field_words, void* stream) {
+  Field F = field_from_words(field_words);
+  if (nvec < 1 || nvec > 4 || num_extra > num_vars) return (int)cudaErrorInvalidValue;
+  Vec4 v = {{(uint32_t*)v0, (uint32_t*)v1, (uint32_t*)v2, (uint32_t*)v3}};
+  dim3 grid(blocks_for(num_vars, 4096), (unsigned)nvec, 1);
+  inner0_bind_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+      num_vars, num_extra, 0, v, fe_zero_host(), fe_zero_host(), (const uint32_t*)r_dev, F);
   return (int)cudaGetLastError();
 }

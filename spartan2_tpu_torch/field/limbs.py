@@ -41,6 +41,10 @@ def limbs_to_ints(arr, spec: FieldSpec, mont: bool = False) -> list[int]:
     return [v % p for v in vals]
 
 
-def to_device(vals, spec: FieldSpec, device, mont: bool = False) -> torch.Tensor:
-    """Python ints -> (n, 8) int32 tensor on ``device``."""
-    return torch.from_numpy(ints_to_limbs_np(vals, spec, mont)).to(device)
+def to_device(vals, spec: FieldSpec, device, mont: bool = False,
+              non_blocking: bool = False) -> torch.Tensor:
+    """Python ints -> (n, 8) int32 tensor on ``device``; ``non_blocking``
+    copies without synchronizing the host (the source is pageable, so the
+    copy is staged before the call returns)."""
+    return torch.from_numpy(ints_to_limbs_np(vals, spec, mont)).to(
+        device, non_blocking=non_blocking)

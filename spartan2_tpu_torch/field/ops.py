@@ -9,7 +9,8 @@ Montgomery fold stays below 2^38: no intermediate can overflow int64.
 This is the plain version of the device functions in csrc/field.cuh,
 which replace ``FieldOps`` of the JAX package (field/jnp_ops.py: add/sub
 :126-146, mont_mul :185, to_mont/from_mont :211-228, inv/batch_inv
-:243-300).  The kernels' plain versions call it; it runs on any device.
+:243-300, from_uniform_bytes :302, the canonical byte encodings
+:704/:722).  The kernels' plain versions call it; it runs on any device.
 """
 
 from __future__ import annotations
@@ -167,3 +168,25 @@ def inv(a: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
 def sum_all(x: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     """(n, 8) -> (8,): the sum of n <= 2^20 elements mod p."""
     return reduce_digit_sums(_digits(x).sum(1), spec)
+
+
+def from_uniform_bytes(data: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    """(..., 64) uint8, a 512-bit little-endian integer -> (..., 8) its
+    Montgomery form mod p (FieldSpec.from_uniform, then to_mont).  With
+    lo and hi the two 256-bit halves, lo R + hi 2^256 R = REDC(lo R^2) +
+    REDC(hi R^3); REDC takes lo, hi < 2^256 unreduced, since a factor
+    below p keeps the product below p R."""
+    words = data.contiguous().view(torch.int32)  # little-endian limbs
+    p = spec.modulus
+    r2 = const(spec.r2_mod, spec, device=data.device, mont=False)
+    r3 = const(spec.r2_mod * spec.to_mont(1) % p, spec, device=data.device, mont=False)
+    return add(mont_mul(words[..., :8], r2, spec), mont_mul(words[..., 8:], r3, spec),
+               spec)
+
+
+def to_bytes(a: torch.Tensor, spec: FieldSpec, big_endian: bool = False) -> torch.Tensor:
+    """(..., 8) Montgomery -> (..., 32) uint8, the canonical 32-byte
+    encoding, little-endian (FieldSpec.to_bytes) or big-endian (the
+    transcript's scalar encoding)."""
+    le = from_mont(a, spec).contiguous().view(torch.uint8)
+    return le.flip(-1) if big_endian else le

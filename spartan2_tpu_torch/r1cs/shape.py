@@ -233,8 +233,15 @@ class SplitR1CSShape:
     def bind_and_prepare_poly_ABC(self, r_x: list[int], r: int) -> torch.Tensor:
         """poly_ABC[j] = sum_i eq(r_x, i) (A + r B + r^2 C)[i, j] over the
         num_cols domain (reference r1cs/mod.rs:1235-1398)."""
-        dev = self.dev["device"]
-        eq = eq_table(eq_factors(r_x, self.field, dev), self.field)
+        return self.bind_and_prepare_poly_ABC_dev(
+            eq_factors(r_x, self.field, self.dev["device"]), r)
+
+    def bind_and_prepare_poly_ABC_dev(self, factors: torch.Tensor, r: int) -> torch.Tensor:
+        """``bind_and_prepare_poly_ABC`` from the eq factors [r_x, 1 - r_x]
+        ((2m, 8) Montgomery) already on the device, as the sum-check's
+        round finishes wrote them (the JAX package's
+        bind_and_prepare_poly_ABC_device)."""
+        eq = eq_table(factors, self.field)
         return spmv_combine(self._mats("t"), eq, r, self.field)
 
     def evaluate_at(self, r_x: list[int], r_y: list[int]):

@@ -6,12 +6,15 @@ spartan.py), so with the same blinds the proof bytes are equal.
 
 The prover keeps the bulk data on the keys' device: witness commits on
 the comb MSM (kernel 3), Az/Bz/Cz and poly_ABC on the SpMV (kernel 1),
-both sum-checks on kernel 2 with the transcript on the host between
-rounds (the inner round 0 on its structured kernel B), and the PCS
-L-fold on kernel 4.  Each round pulls only its 2 or 3 evaluations, so
-the host work per proof is O(rounds) scalars plus the witness
-synthesis.  The entry points run under torch.inference_mode: nothing
-here needs autograd, and its bookkeeping would cost every small launch.
+the PCS L-fold on kernel 4.  Both sum-checks run on the device
+transcript (JAX's spartan.py:478-640): the host state moves to a
+DeviceTranscript, every round is enqueued (kernels G or A/B for the
+sums, F for the round finish and squeeze, kernel A's binds), the
+claims_outer absorb and the squeeze of r run on the card too (kernel T),
+and the host pulls twice: the outer finals and r (``outer_sync_pull``),
+then the state, coefficients and challenges (``tail_sync_pull``).  The
+entry points run under torch.inference_mode: nothing here needs
+autograd, and its bookkeeping would cost every small launch.
 """
 
 from __future__ import annotations
@@ -22,16 +25,17 @@ from typing import Optional
 import torch
 
 from ..errors import DivisionByZeroError, IncorrectWitnessError, ProofVerifyError
-from ..field.limbs import to_device
+from ..field.limbs import limbs_to_ints, to_device
 from ..frontend.constraint_system import ConstraintSystem
 from ..pcs.hyrax import HyraxBlind, HyraxCommitment, HyraxEvaluationArgument
 from ..polys.eq import eq_evaluate
 from ..polys.multilinear import sparse_poly_evaluate_host
+from ..polys.univariate import UniPoly
 from ..provider.engines import Engine
 from ..r1cs.shape import R1CSWitness, SplitR1CSInstance, SplitR1CSShape
-from ..sumcheck.prove import challenge, prove_cubic_eq, prove_quad
+from ..sumcheck.prove import SpartanInnerRound0, SumcheckProverCubicEq, SumcheckProverQuad
 from ..sumcheck.verify import SumcheckProof
-from ..sumcheck.zk_device import inner_round0
+from ..transcript.device import DeviceTranscript
 from ..transcript.transcript import Transcript
 from ..utils.digest import vk_digest
 from ..utils.tracing import span
@@ -360,6 +364,54 @@ class SpartanSNARK:
         return SpartanPrepSNARK(ps=ps)
 
     @staticmethod
+    def instance(pk: SpartanProverKey, circuit, prep: SpartanPrepSNARK,
+                 is_small: bool = False, rng=None):
+        """The prove up to its outer sum-check: the transcript after the
+        taus, the instance and witness, z = (W, 1, X) on the device, the
+        taus and Az/Bz/Cz -> (transcript, U, W, z, taus, ABC)."""
+        engine, S = pk.engine, pk.S
+        transcript = engine.transcript(b"SpartanSNARK")
+        transcript.absorb_bytes(b"vk", pk.vk_digest)
+        transcript.absorb_scalars(b"public_values", circuit.public_values())
+
+        with span("witness_and_instance"):
+            U, W = r1cs_instance_and_witness(engine, prep.ps, S, pk.ck, circuit,
+                                             is_small, transcript, rng)
+        tail = _upload_mont(engine, [1] + U.public_values + U.challenges, pk.device)
+        z = torch.cat([W.W, tail])  # (num_cols, 8)
+        taus = [transcript.squeeze(b"t") for _ in range(_log2(S.num_cons))]
+
+        with span("matrix_vector_multiply"):
+            if prep.ps.matvec_cache is not None:
+                ABC = S.multiply_vec_incremental(z, prep.ps.matvec_cache)
+            else:
+                ABC = S.multiply_vec(z)
+        return transcript, U, W, z, taus, ABC
+
+    @staticmethod
+    def outer_sumcheck(F, td: DeviceTranscript, ABC, taus: list[int], eff: int):
+        """The outer sum-check on the device transcript, Az/Bz/Cz zero past
+        the ``eff`` unpadded constraints (round 0 reads the upper half only
+        below it) -> (coeffs (m, 4, 8), challenges (m, 2, 8), finals)."""
+        zero = torch.zeros(8, dtype=torch.int32, device=ABC.device)
+        return SumcheckProverCubicEq(F).prove(td, ABC[0], ABC[1], ABC[2], zero, taus,
+                                              zero_check=True, eff=eff)[:3]
+
+    @staticmethod
+    def inner_sumcheck(F, td: DeviceTranscript, abc, z, claim, num_vars: int,
+                       num_extra: int):
+        """The inner sum-check over the 2 num_vars domain, on the device
+        transcript: kernel B's structured round 0 over abc and z at width
+        num_cols (both zero past it), then the quad rounds over num_vars
+        -> (coeffs (1 + n, 3, 8), challenges (1 + n, 2, 8), eval_Z)."""
+        claim0, r0, coeffs0 = SpartanInnerRound0(F).run(td, abc, z, claim, num_vars,
+                                                        num_extra)
+        n = _log2(num_vars)
+        cq, rq, finals, _ = SumcheckProverQuad(F).prove(td, abc[:num_vars], z[:num_vars],
+                                                        claim0, n)
+        return torch.cat([coeffs0[None], cq]), torch.cat([r0[None], rq]), finals[1]
+
+    @staticmethod
     @torch.inference_mode()
     def prove(pk: SpartanProverKey, circuit, prep: SpartanPrepSNARK,
               is_small: bool = False, rng=None):
@@ -369,50 +421,45 @@ class SpartanSNARK:
         p = F.modulus
         device = pk.device
 
-        transcript = engine.transcript(b"SpartanSNARK")
-        transcript.absorb_bytes(b"vk", pk.vk_digest)
-        public_values = circuit.public_values()
-        transcript.absorb_scalars(b"public_values", public_values)
-
-        with span("witness_and_instance"):
-            U, W = r1cs_instance_and_witness(engine, prep.ps, S, pk.ck, circuit,
-                                             is_small, transcript, rng)
-
+        transcript, U, W, z, taus, ABC = SpartanSNARK.instance(pk, circuit, prep,
+                                                               is_small, rng)
         num_vars = S.num_vars
-        tail = _upload_mont(engine, [1] + U.public_values + U.challenges, device)
-        z = torch.cat([W.W, tail])  # (num_cols, 8)
-        num_rounds_x = _log2(S.num_cons)
+        num_rounds_x = len(taus)
         num_rounds_y = _log2(num_vars) + 1
-        taus = [transcript.squeeze(b"t") for _ in range(num_rounds_x)]
 
-        with span("matrix_vector_multiply"):
-            if prep.ps.matvec_cache is not None:
-                ABC = S.multiply_vec_incremental(z, prep.ps.matvec_cache)
-            else:
-                ABC = S.multiply_vec(z)
-
+        td = DeviceTranscript.from_host(transcript, device)
         with span("outer_sumcheck"):
-            sc_proof_outer, r_x, claims = prove_cubic_eq(
-                transcript, taus, ABC[0], ABC[1], ABC[2], F)
-        claim_Az, claim_Bz, claim_Cz = claims
-        transcript.absorb_scalars(b"claims_outer", [claim_Az, claim_Bz, claim_Cz])
-
-        r = transcript.squeeze(b"r")
+            coeffs_outer, rx_pairs, finals = SpartanSNARK.outer_sumcheck(
+                F, td, ABC, taus, S.num_cons_unpadded)
+            td.absorb_scalars_mont(b"claims_outer", torch.stack(finals))
+            r_dev = td.squeeze_mont(b"r")
+        with span("outer_sync_pull"):  # the one pull of the outer sum-check
+            vals = limbs_to_ints(torch.stack([*finals, r_dev]), F, mont=True)
+        claim_Az, claim_Bz, claim_Cz, r = vals
         claim_inner = (claim_Az + r * claim_Bz + r * r * claim_Cz) % p
+
         with span("prepare_poly_ABC"):
-            abc = S.bind_and_prepare_poly_ABC(r_x, r)
+            # the eq(r_x) factors [r_x, 1 - r_x], as the round finishes wrote them
+            abc = S.bind_and_prepare_poly_ABC_dev(
+                rx_pairs.transpose(0, 1).reshape(2 * num_rounds_x, 8), r)
         with span("inner_sumcheck"):
-            # the 2 * num_vars inner domain: abc and z are zero past
-            # num_cols, so round 0 is kernel B's structured round over
-            # num_cols, and the rest a quad sum-check over num_vars
-            r0, (poly0,), (claim0,) = inner_round0(
-                F, [claim_inner], abc, z, num_vars, S.num_cols - num_vars,
-                lambda unis: challenge(transcript, unis[0]))
-            sc_rest, r_rest, finals = prove_quad(transcript, claim0,
-                                                 abc[:num_vars], z[:num_vars], F)
-        sc_proof_inner = sc_rest.prepend_round(poly0)
-        r_y = [r0] + r_rest
-        eval_Z = finals[1]
+            claim_dev = _upload_mont(engine, [claim_inner], device)[0]
+            coeffs_inner, ry_pairs, eval_Z_dev = SpartanSNARK.inner_sumcheck(
+                F, td, abc, z, claim_dev, num_vars, S.num_cols - num_vars)
+        with span("tail_sync_pull"):  # state, coefficients, challenges: one pull
+            arr = torch.cat([
+                td.state.view(torch.int32).reshape(2, 8), coeffs_outer.reshape(-1, 8),
+                coeffs_inner.reshape(-1, 8), ry_pairs[:, 0], eval_Z_dev[None]]).cpu().numpy()
+        transcript.state = arr[:2].tobytes()
+        transcript.round = td.round
+        vals = limbs_to_ints(arr[2:], F, mont=True)
+        n_out, n_in = 4 * num_rounds_x, 3 * num_rounds_y
+        sc_proof_outer = SumcheckProof(F, [
+            UniPoly(F, vals[i : i + 4]).compress() for i in range(0, n_out, 4)])
+        sc_proof_inner = SumcheckProof(F, [
+            UniPoly(F, vals[i : i + 3]).compress() for i in range(n_out, n_out + n_in, 3)])
+        r_y = vals[n_out + n_in : n_out + n_in + num_rounds_y]
+        eval_Z = vals[-1]
 
         # eval_W = (eval_Z - r_y[0] * eval_X) / (1 - r_y[0])   (Z = (W, 1, X))
         X = U.public_values + U.challenges

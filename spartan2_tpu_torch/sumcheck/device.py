@@ -1,12 +1,18 @@
 """Kernel 2 (csrc/sumcheck.cu): the eq and power tables, sum-check round
 evaluations and binds batched over K instances (kernel A), and the
-structured inner round 0 (kernel B), with their plain versions.
+structured inner round 0 (kernel B); kernel G (csrc/cubiceq.cu): the sums
+of a Gruen eq-split round; with their plain versions.
 
 Vectors are (n, 8) int32 Montgomery tensors, or (K, n, 8) for K
 instances.  On CUDA tensors each
 wrapper launches the kernel (or raises); on CPU tensors it runs the plain
-PyTorch version.  Round evaluations come back as canonical Python ints
-(the host squeezes the round challenge from them).
+PyTorch version.  ``round_evals*`` and ``inner0_evals`` return canonical
+Python ints (the host-challenge drivers squeeze from them); the
+``*_partials`` and ``cubiceq_evals`` wrappers leave per-block partial sums
+on the device, (nblocks, sums, 8) Montgomery (one block on the CPU), for
+the round finish (sumcheck/prove.py ``round_finish``), and
+``bind_dev``/``inner0_bind_dev`` read the challenge from the device
+slot [r, 1 - r] the finish wrote.
 """
 
 from __future__ import annotations
@@ -25,6 +31,11 @@ SUMCHECK = CudaKernel("sumcheck", {
     "sp2_bind": [SZ, I, SZ, I, I, P, P, P, P, P, P],
     "sp2_inner0_evals": [SZ, SZ, I, SZ, P, P, P, I, P, P],
     "sp2_inner0_bind": [SZ, SZ, I, SZ, P, P, P, P, P],
+    "sp2_bind_dev": [SZ, I, P, P, P, P, P, P],
+    "sp2_inner0_bind_dev": [SZ, SZ, I, P, P, P, P, P, P],
+})
+CUBICEQ = CudaKernel("cubiceq", {
+    "sp2_cubiceq_evals": [SZ, SZ, I, I, I, P, P, P, P, P, P, I, P],
 })
 
 CUBIC, QUAD, DOT = 0, 1, 2
@@ -167,6 +178,36 @@ def round_evals_batched_plain(mode: int, n: int, vecs: list,
                           spec) for k in range(K)])
 
 
+def _round_launch(mode: int, n: int, vecs: list, spec: FieldSpec, reduce: bool):
+    """Launch kernel A -> (partial, out); out is None unless ``reduce``."""
+    K, stride = _instances(vecs)
+    _check_vecs(vecs, n)
+    ns = _NSUMS[mode]
+    work = n if mode == DOT else n // 2
+    nblocks = _nblocks(work)
+    dev = vecs[0].device
+    partial = torch.empty(K * nblocks, ns, 8, dtype=torch.int32, device=dev)
+    out = torch.empty(K * ns, 8, dtype=torch.int32, device=dev) if reduce else None
+    ptr = [v.data_ptr() for v in vecs]
+    eq, A, B, C = ptr if mode == CUBIC else [None, ptr[0], ptr[1], None]
+    SUMCHECK.call("sp2_round_evals", mode, work, K, stride, eq, A, B, C,
+                  partial.data_ptr(), nblocks, None if out is None else out.data_ptr(),
+                  field_words(spec))
+    return partial, out
+
+
+def _check_round_vecs(mode: int, vecs: list) -> int:
+    if len(vecs) != (4 if mode == CUBIC else 2):
+        raise ValueError(f"round_evals: wrong number of vectors for mode {mode}")
+    K, _ = _instances(vecs)
+    polys = vecs[1:] if mode == CUBIC else vecs
+    if K > 1 and any(v.dim() != 3 for v in polys):
+        raise ValueError("round_evals: with K > 1 every polynomial is (K, rows, 8)")
+    if mode == CUBIC and vecs[0].dim() != 2:
+        raise ValueError("round_evals: the eq vector is shared, (rows, 8)")
+    return K
+
+
 def round_evals_batched(mode: int, n: int, vecs: list,
                         spec: FieldSpec) -> list[list[int]]:
     """Kernel A: the round sums of K instances at once, as canonical ints
@@ -178,28 +219,20 @@ def round_evals_batched(mode: int, n: int, vecs: list,
         s(X) = sum_j eq(X) (A(X) B(X) - C(X)) over the n/2 pairs;
     QUAD -> [sum A_lo B_lo, sum (A_hi - A_lo)(B_hi - B_lo)];
     DOT -> [sum A B] over the first n entries."""
-    if len(vecs) != (4 if mode == CUBIC else 2):
-        raise ValueError(f"round_evals: wrong number of vectors for mode {mode}")
-    K, stride = _instances(vecs)
-    polys = vecs[1:] if mode == CUBIC else vecs
-    if K > 1 and any(v.dim() != 3 for v in polys):
-        raise ValueError("round_evals: with K > 1 every polynomial is (K, rows, 8)")
-    if mode == CUBIC and vecs[0].dim() != 2:
-        raise ValueError("round_evals: the eq vector is shared, (rows, 8)")
+    K = _check_round_vecs(mode, vecs)
     if vecs[0].device.type == "cpu":
         return _pull(round_evals_batched_plain(mode, n, vecs, spec), spec, K)
-    _check_vecs(vecs, n)
-    ns = _NSUMS[mode]
-    work = n if mode == DOT else n // 2
-    nblocks = _nblocks(work)
-    dev = vecs[0].device
-    partial = torch.empty(K * nblocks * ns, 8, dtype=torch.int32, device=dev)
-    out = torch.empty(K * ns, 8, dtype=torch.int32, device=dev)
-    ptr = [v.data_ptr() for v in vecs]
-    eq, A, B, C = ptr if mode == CUBIC else [None, ptr[0], ptr[1], None]
-    SUMCHECK.call("sp2_round_evals", mode, work, K, stride, eq, A, B, C,
-                  partial.data_ptr(), nblocks, out.data_ptr(), field_words(spec))
-    return _pull(out, spec, K)
+    return _pull(_round_launch(mode, n, vecs, spec, True)[1], spec, K)
+
+
+def round_partials(mode: int, n: int, vecs: list, spec: FieldSpec) -> torch.Tensor:
+    """Kernel A's sums of one instance (``round_evals``' CUBIC or QUAD),
+    left on the device as (nblocks, sums, 8) per-block partial sums."""
+    if _check_round_vecs(mode, vecs) != 1 or mode == DOT:
+        raise ValueError("round_partials: one instance, CUBIC or QUAD")
+    if vecs[0].device.type == "cpu":
+        return round_evals_plain(mode, n, vecs, spec)[None]
+    return _round_launch(mode, n, vecs, spec, False)[0]
 
 
 def round_evals(mode: int, n: int, vecs: list, spec: FieldSpec) -> list[int]:
@@ -212,14 +245,17 @@ def round_evals(mode: int, n: int, vecs: list, spec: FieldSpec) -> list[int]:
 # ---------------------------------------------------------------------------
 
 
-def bind_plain(vecs: list, n: int, r: int, spec: FieldSpec) -> None:
-    """Plain version of ``bind`` (in place)."""
+def _bind_mont_plain(vecs: list, n: int, rr: torch.Tensor, spec: FieldSpec) -> None:
     half = n // 2
-    rr = ops.const(r, spec, device=vecs[0].device)
     for v in vecs:
         lo, hi = v[..., :half, :], v[..., half:n, :]
         v[..., :half, :] = ops.add(lo, ops.mont_mul(rr, ops.sub(hi, lo, spec), spec),
                                    spec)
+
+
+def bind_plain(vecs: list, n: int, r: int, spec: FieldSpec) -> None:
+    """Plain version of ``bind`` (in place)."""
+    _bind_mont_plain(vecs, n, ops.const(r, spec, device=vecs[0].device), spec)
 
 
 def bind(vecs: list, n: int, r: int, spec: FieldSpec) -> None:
@@ -237,6 +273,27 @@ def bind(vecs: list, n: int, r: int, spec: FieldSpec) -> None:
     ptrs = [v.data_ptr() for v in vecs] + [None] * (4 - len(vecs))
     SUMCHECK.call("sp2_bind", n // 2, K, stride, len(vecs), shared, *ptrs,
                   fe_words(spec.to_mont(r)), field_words(spec))
+
+
+def _check_slot(vecs: list, r_slot: torch.Tensor) -> list:
+    if not 1 <= len(vecs) <= 4 or any(v.dim() != 2 for v in vecs):
+        raise ValueError("device-r binds take 1 to 4 (rows, 8) vectors")
+    check_cuda(*vecs, r_slot)
+    if r_slot.shape != (2, 8):
+        raise ValueError("the challenge slot is (2, 8): r, 1 - r")
+    return [v.data_ptr() for v in vecs] + [None] * (4 - len(vecs))
+
+
+def bind_dev(vecs: list, n: int, r_slot: torch.Tensor, spec: FieldSpec) -> None:
+    """``bind`` of (rows, 8) vectors with r read on the device from
+    ``r_slot`` = [r, 1 - r] (Montgomery), as the round finish wrote it."""
+    if vecs[0].device.type == "cpu":
+        _bind_mont_plain(vecs, n, r_slot[0], spec)
+        return
+    ptrs = _check_slot(vecs, r_slot)
+    _check_vecs(vecs, n)
+    SUMCHECK.call("sp2_bind_dev", n // 2, len(vecs), *ptrs, r_slot.data_ptr(),
+                  field_words(spec))
 
 
 # ---------------------------------------------------------------------------
@@ -296,17 +353,22 @@ def inner0_evals(abc: torch.Tensor, z: torch.Tensor, num_vars: int,
     return [(e0, (e0 - low + cross) % p) for e0, low, cross in sums]
 
 
-def inner0_bind_plain(abc: torch.Tensor, z: torch.Tensor, r: int, num_vars: int,
-                      num_extra: int, spec: FieldSpec) -> None:
-    """Plain version of ``inner0_bind`` (in place)."""
-    rr = ops.const(r, spec, device=abc.device)
-    om = ops.const(1 - r, spec, device=abc.device)
+def _inner0_bind_mont_plain(vecs: list, rr: torch.Tensor, om: torch.Tensor,
+                            num_vars: int, num_extra: int, spec: FieldSpec) -> None:
     nv, ne = num_vars, num_extra
-    for v in (abc, z):
+    for v in vecs:
         lo, hi = v[..., :ne, :], v[..., nv : nv + ne, :]
         v[..., :ne, :] = ops.add(lo, ops.mont_mul(rr, ops.sub(hi, lo, spec), spec),
                                  spec)
         v[..., ne:nv, :] = ops.mont_mul(om, v[..., ne:nv, :], spec)
+
+
+def inner0_bind_plain(abc: torch.Tensor, z: torch.Tensor, r: int, num_vars: int,
+                      num_extra: int, spec: FieldSpec) -> None:
+    """Plain version of ``inner0_bind`` (in place)."""
+    dev = abc.device
+    _inner0_bind_mont_plain([abc, z], ops.const(r, spec, device=dev),
+                            ops.const(1 - r, spec, device=dev), num_vars, num_extra, spec)
 
 
 def inner0_bind(abc: torch.Tensor, z: torch.Tensor, r: int, num_vars: int,
@@ -326,3 +388,98 @@ def inner0_bind(abc: torch.Tensor, z: torch.Tensor, r: int, num_vars: int,
     SUMCHECK.call("sp2_inner0_bind", num_vars, num_extra, K, stride,
                   abc.data_ptr(), z.data_ptr(), fe_words(spec.to_mont(r)),
                   fe_words(spec.to_mont((1 - r) % spec.modulus)), field_words(spec))
+
+
+def inner0_bind_dev(vecs: list, r_slot: torch.Tensor, num_vars: int, num_extra: int,
+                    spec: FieldSpec) -> None:
+    """``inner0_bind`` of up to four (rows, 8) vectors, r and 1 - r read
+    on the device from ``r_slot``.  With num_vars = n/2 and num_extra the
+    live entries of the upper half it is also the bind of the peeled outer
+    round 0 (the zero tail's rows scaled by 1 - r)."""
+    if not 0 <= num_extra <= num_vars:
+        raise ValueError("inner0_bind_dev: need 0 <= num_extra <= num_vars")
+    if vecs[0].device.type == "cpu":
+        _inner0_bind_mont_plain(vecs, r_slot[0], r_slot[1], num_vars, num_extra, spec)
+        return
+    ptrs = _check_slot(vecs, r_slot)
+    _check_vecs(vecs, num_vars + num_extra)
+    SUMCHECK.call("sp2_inner0_bind_dev", num_vars, num_extra, len(vecs), *ptrs,
+                  r_slot.data_ptr(), field_words(spec))
+
+
+def inner0_partials(abc: torch.Tensor, z: torch.Tensor, num_vars: int, num_extra: int,
+                    spec: FieldSpec) -> torch.Tensor:
+    """Kernel B's sums (eval0, corr_low, corr_cross) of one instance,
+    left on the device as (nblocks, 3, 8) per-block partial sums."""
+    if not 0 < num_extra <= num_vars or abc.dim() != 2:
+        raise ValueError("inner0_partials: one instance, 0 < num_extra <= num_vars")
+    if abc.device.type == "cpu":
+        return inner0_evals_plain(abc, z, num_vars, num_extra, spec)
+    _check_vecs([abc, z], num_vars + num_extra)
+    nblocks = _nblocks(num_vars)
+    partial = torch.empty(nblocks, 3, 8, dtype=torch.int32, device=abc.device)
+    SUMCHECK.call("sp2_inner0_evals", num_vars, num_extra, 1, 0, abc.data_ptr(),
+                  z.data_ptr(), partial.data_ptr(), nblocks, None, field_words(spec))
+    return partial
+
+
+# ---------------------------------------------------------------------------
+# kernel G: the sums of a Gruen eq-split round
+# ---------------------------------------------------------------------------
+
+
+def cubiceq_evals_plain(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, half: int,
+                        hi_len: int, EL, ER: torch.Tensor, rlog: int, zero_check: bool,
+                        fallback: bool, spec: FieldSpec) -> torch.Tensor:
+    """Plain version of ``cubiceq_evals``: (1, 3, 8) Montgomery sums."""
+    i = torch.arange(half, device=A.device)
+    w = ER[:half] if EL is None else ops.mont_mul(EL[i >> rlog], ER[i & ((1 << rlog) - 1)],
+                                                  spec)
+
+    def halves(v):
+        hi = torch.zeros_like(v[:half])
+        hi[:hi_len] = v[half : half + hi_len]
+        return v[:half], hi
+
+    (a0, a1), (b0, b1), (c0, c1) = halves(A), halves(B), halves(C)
+    zero = torch.zeros(8, dtype=torch.int32, device=A.device)
+
+    def wsum(f):
+        return ops.sum_all(ops.mont_mul(w, f, spec), spec)
+
+    tinf = wsum(ops.mont_mul(ops.sub(a1, a0, spec), ops.sub(b1, b0, spec), spec))
+    t0 = zero if zero_check else wsum(ops.sub(ops.mont_mul(a0, b0, spec), c0, spec))
+    tm1 = zero
+    if fallback:
+        am, bm, cm = (ops.sub(ops.add(x0, x0, spec), x1, spec)
+                      for x0, x1 in ((a0, a1), (b0, b1), (c0, c1)))
+        tm1 = wsum(ops.sub(ops.mont_mul(am, bm, spec), cm, spec))
+    return torch.stack([t0, tinf, tm1])[None]
+
+
+def cubiceq_evals(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, half: int,
+                  hi_len: int, EL, ER: torch.Tensor, rlog: int, zero_check: bool,
+                  fallback: bool, spec: FieldSpec) -> torch.Tensor:
+    """Kernel G: the sums of one Gruen round over the low half [0, half)
+    of A, B, C ((rows, 8) Montgomery), the high half read below hi_len and
+    zero past it, against w_i = EL[i >> rlog] ER[i mod 2^rlog] (EL a
+    tensor) or ER[i] (EL None) -> (nblocks, 3, 8) partial sums of t0
+    (zero with zero_check), tinf and, with fallback, t(-1)
+    (csrc/cubiceq.cu)."""
+    if A.device.type == "cpu":
+        return cubiceq_evals_plain(A, B, C, half, hi_len, EL, ER, rlog, zero_check,
+                                   fallback, spec)
+    if not 0 <= hi_len <= half:
+        raise ValueError("cubiceq_evals: need 0 <= hi_len <= half")
+    tables = [ER] if EL is None else [EL, ER]
+    _check_vecs([A, B, C], half + hi_len)
+    check_cuda(A, *tables)
+    if ER.shape[0] < (half if EL is None else 1 << rlog) or (
+            EL is not None and EL.shape[0] << rlog < half):
+        raise ValueError("cubiceq_evals: weight tables too short")
+    nblocks = _nblocks(half)
+    partial = torch.empty(nblocks, 3, 8, dtype=torch.int32, device=A.device)
+    CUBICEQ.call("sp2_cubiceq_evals", half, hi_len, rlog, int(zero_check), int(fallback),
+                 None if EL is None else EL.data_ptr(), ER.data_ptr(), A.data_ptr(),
+                 B.data_ptr(), C.data_ptr(), partial.data_ptr(), nblocks, field_words(spec))
+    return partial

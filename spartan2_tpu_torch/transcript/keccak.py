@@ -1,12 +1,14 @@
-"""Pure-Python Keccak-256 (original Keccak padding 0x01, NOT SHA3's 0x06).
+"""Host Keccak-256 (original Keccak padding 0x01, NOT SHA3's 0x06).
 
 Implemented from the Keccak specification (Keccak-f[1600] permutation,
 rate 1088 bits / capacity 512 bits, 32-byte output).  The reference uses the
 Rust `sha3::Keccak256` (src/provider/keccak.rs:16) — this module reproduces
 the same function so Fiat-Shamir transcripts are bit-exact.
 
-Host-side only: the port squeezes its Fiat-Shamir challenges on the host
-between kernel launches.
+``keccak256`` is the C implementation (native/keccak.c, built with ``cc``
+at its first call; a failed build raises).  ``keccak256_plain`` is the
+same function in pure Python, kept as its plain version for the tests.
+The device Keccak is csrc/keccak.cuh (transcript/device.py).
 """
 
 from __future__ import annotations
@@ -65,8 +67,8 @@ def keccak_f1600(lanes: list[int]) -> list[int]:
 _RATE = 136  # bytes (1088-bit rate for Keccak-256)
 
 
-def keccak256(data: bytes) -> bytes:
-    """Keccak-256 digest (original padding 0x01 .. 0x80)."""
+def keccak256_plain(data: bytes) -> bytes:
+    """Keccak-256 digest (original padding 0x01 .. 0x80), pure Python."""
     state = [0] * 25
     # absorb
     pad_len = _RATE - (len(data) % _RATE)
@@ -82,3 +84,16 @@ def keccak256(data: bytes) -> bytes:
     # squeeze (single block suffices for 32 bytes)
     out = b"".join(state[i].to_bytes(8, "little") for i in range(4))
     return out
+
+
+_native = None
+
+
+def keccak256(data: bytes) -> bytes:
+    """Keccak-256 digest, in C (native/keccak.c)."""
+    global _native
+    if _native is None:
+        from ..native import load_keccak
+
+        _native = load_keccak()
+    return _native(data)

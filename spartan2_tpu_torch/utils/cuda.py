@@ -15,6 +15,7 @@ entries serve more than one kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -126,12 +127,18 @@ def build_all(kernels) -> float:
     return time.perf_counter() - t0
 
 
+@functools.lru_cache(maxsize=None)
 def field_words(spec) -> bytes:
-    """p, Montgomery one and -p^-1 mod 2^32 as 17 u32 (csrc/field.cuh)."""
-    p, one = spec.modulus, spec.r_mod
-    words = [(p >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
-    words += [(one >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
-    return struct.pack("<17I", *words, spec.n0)
+    """p, Montgomery one, -p^-1 mod 2^32, R^2 and R^3 mod p as 33 u32
+    (csrc/field.cuh ``Field``)."""
+    p = spec.modulus
+
+    def w8(v):
+        return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+
+    words = w8(p) + w8(spec.r_mod) + [spec.n0] + w8(spec.r2_mod)
+    words += w8(spec.r2_mod * spec.r_mod % p)
+    return struct.pack("<33I", *words)
 
 
 def fe_words(value: int) -> bytes:

@@ -103,3 +103,21 @@ def test_sums_and_carry_out_of_limb_7(fields):
     big = values(p, 300, 5)
     s = ops.sum_all(_t(big, spec), spec)
     assert limbs_to_ints(s, spec) == [sum(big) % p]
+
+
+def test_field_words_match_the_cuda_header():
+    """The words field_words packs are what csrc/field.cuh unpacks: every
+    reader after them (curve_from_words' a) starts at FIELD_WORDS."""
+    import re
+    from pathlib import Path
+
+    from spartan2_tpu_torch.ec.comb import curve_words
+    from spartan2_tpu_torch.provider.engines import get_engine
+    from spartan2_tpu_torch.utils.cuda import CSRC, field_words
+
+    n = int(re.search(r"constexpr int FIELD_WORDS = (\d+);",
+                      (CSRC / "field.cuh").read_text()).group(1))
+    curve = get_engine("P256HyraxEngine").curve
+    assert len(field_words(curve.base)) == 4 * n
+    assert len(curve_words(curve)) == 4 * n + 32
+    assert "w + FIELD_WORDS" in (CSRC / "curve.cuh").read_text()

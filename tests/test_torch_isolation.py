@@ -47,6 +47,10 @@ import spartan2_tpu_torch.utils.serde
 import spartan2_tpu_torch.field.small_value
 import spartan2_tpu_torch.snark.neutronnova
 import spartan2_tpu_torch.sumcheck.nifs
+# and the device transcript's and the enqueued sum-checks'
+import spartan2_tpu_torch.native
+import spartan2_tpu_torch.sumcheck.prove
+import spartan2_tpu_torch.transcript.device
 from tests.torch_helpers import CubicCircuit, det
 engine, circuit = get_engine("P256HyraxEngine"), CubicCircuit()
 pk, vk = SpartanSNARK.setup(engine, circuit, width=4, device="cpu")
@@ -61,9 +65,11 @@ from spartan2_tpu_torch.ec.comb import COMB
 from spartan2_tpu_torch.ec.msm import MSM
 from spartan2_tpu_torch.pcs.hyrax import HYRAX_BIND
 from spartan2_tpu_torch.r1cs.sparse import SPMV
-from spartan2_tpu_torch.sumcheck.device import SUMCHECK
+from spartan2_tpu_torch.sumcheck.device import CUBICEQ, SUMCHECK
 from spartan2_tpu_torch.sumcheck.nifs import NIFS
-for k in (SPMV, SUMCHECK, COMB, HYRAX_BIND, MSM, NIFS):
+from spartan2_tpu_torch.sumcheck.prove import ROUND_FINISH
+from spartan2_tpu_torch.transcript.device import TRANSCRIPT
+for k in (SPMV, SUMCHECK, COMB, HYRAX_BIND, MSM, NIFS, CUBICEQ, ROUND_FINISH, TRANSCRIPT):
     assert k.launches == 0 and k._lib is None, k.name
 print("isolated")
 """

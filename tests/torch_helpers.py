@@ -128,3 +128,20 @@ def det(seed: int):
 def rand_ints(p: int, n: int, seed: int) -> list[int]:
     r = random.Random(seed)
     return [r.randrange(p) for _ in range(n)]
+
+
+def mont_vector(spec, n: int, seed: int):
+    """n seeded canonical ints and their (n, 8) Montgomery tensor on the CPU."""
+    from spartan2_tpu_torch.field.limbs import to_device
+
+    vals = rand_ints(spec.modulus, n, seed)
+    return vals, to_device(vals, spec, "cpu", mont=True)
+
+
+def taus_with_0_and_1(p: int, m: int, seed: int) -> list[int]:
+    """Seeded taus with tau_0 = 0 and tau_1 = 1: the Gruen prover's t(-1)
+    fallback and a zero eq slope term, which the JAX package's fused provers
+    refuse."""
+    taus = rand_ints(p, m, seed)
+    taus[0], taus[1] = 0, 1
+    return taus
