@@ -48,8 +48,25 @@
    Times kernel and plain version with CUDA events (no copies inside a
    timed region), and computes each kernel's bound from the bytes, the
    32-bit multiply-adds and the Keccak logic operations this run's data
-   needs.
-8. Prints one JSON line with the kernels, then the card, then
+   needs.  The comb, MSM and Hyrax-bind kernels are also held against
+   their plain versions on the Pallas curve (a = 0).
+8. The mesh phase (spartan2_tpu_torch/parallel/): W ranks spawned on the
+   one card in a gloo group (FileStore rendezvous in a temporary
+   directory), every kernel built here first.  (m1) W = 2 ranks each set
+   up SpartanSNARK on SHA-256 1 KiB and NeutronNovaZkSNARK on 16 steps
+   and prove them with the sum-checks sharded, from step 2's and step
+   4's seeds: each proof must equal this run's single-device proof byte
+   for byte and verify, and the shard kernels (G, F, A, B) must have
+   been launched by the sharded prove; the precommitted witness's 256
+   rows committed row-sharded must equal comb_rows.  (m2) W = 4 ranks run
+   the sharded outer and inner sum-checks on SHA-256's Az/Bz/Cz: the
+   coefficients, challenges, finals and state must equal the
+   single-device provers'.  (m3) Kernel G's shard stride at s = 0 and
+   s = W - 1 against its plain version on the card.  (m4) Kernels A and
+   the comb at the shards' shapes.  The ranks synchronize every round,
+   so nothing here runs under the sync debug mode.  A rank that fails
+   fails the run.
+9. Prints one JSON line with the kernels, then the card, then
    {"ok": true, ...} as the last line.  Any failed check raises.
 """
 
@@ -656,6 +673,7 @@ def run_spartan(engine, circuit, dev, kernels):
     t0 = time.perf_counter()
     proof, prep = SpartanSNARK.prove(pk, circuit, prep, is_small=True, rng=det(2))
     phases["warmup_prove_s"] = time.perf_counter() - t0
+    first_blob = spartan_proof_to_bytes(proof, engine)  # the mesh phase's reference
     timed = []
     for i in range(2):
         before = {k.name: k.launches for k in kernels}
@@ -711,7 +729,7 @@ def run_spartan(engine, circuit, dev, kernels):
     print(f"launches per prove: {json.dumps(per_prove)}; main path: "
           f"{json.dumps(launches)}; by entry: "
           f"{json.dumps({k.name: k.entry_launches for k in kernels})}", flush=True)
-    return pk, prep, proof, launches
+    return pk, prep, proof, launches, first_blob
 
 
 def run_spartan_zk(engine, S, circuit, dev, kernels):
@@ -880,6 +898,7 @@ def run_neutronnova(engine, dev, kernels):
     proof, prep = NN.prove(pk, steps, core, prep, is_small=True, rng=det(22))
     torch.cuda.synchronize()
     phases["first_prove_s"] = time.perf_counter() - t0
+    first_blob = neutronnova_proof_to_bytes(proof, engine)  # the mesh phase's reference
     t0 = time.perf_counter()
     proof, prep = NN.prove(pk, steps, core, prep, is_small=True, rng=det(23))
     torch.cuda.synchronize()
@@ -957,7 +976,7 @@ def run_neutronnova(engine, dev, kernels):
           flush=True)
     print(f"NN launches per timed prove: {json.dumps(per_prove)}; NN path: "
           f"{json.dumps(launches)}", flush=True)
-    return pk, prep, proof, launches
+    return pk, prep, proof, launches, first_blob
 
 
 def compare_nn_kernels(pk, prep, proof, nn_launches: dict):
@@ -1467,27 +1486,451 @@ def check_sumchecks(pk, prep, circuit, launches: dict, expect_peeled: bool = Tru
 
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
+def check_pallas(dev) -> list:
+    """The curve kernels on the Pallas curve (a = 0, both moduli below
+    2^255) against their plain versions on the card: comb build and rows,
+    the MSM of kernel 5 and the Hyrax row bind over Pallas's scalar field
+    -> detail records."""
+    from spartan2_tpu_torch.ec.comb import (comb_build, comb_build_plain, comb_rows,
+                                            comb_rows_plain, n_windows, to_affine)
+    from spartan2_tpu_torch.ec.msm import msm, msm_plain, to_jacobian
+    from spartan2_tpu_torch.field.limbs import to_device
+    from spartan2_tpu_torch.pcs.hyrax import FULL_BITS, hyrax_bind, hyrax_bind_plain
+    from spartan2_tpu_torch.provider.engines import get_engine
+
+    engine = get_engine("PallasHyraxEngine")
+    curve, F = engine.curve, engine.scalar
+    C = 64
+    ck, _ = engine.pcs.setup(b"ck", 16 * C, C, dev)
+    gen = torch.Generator().manual_seed(17)
+    detail = []
+    gx = to_device([g[0] for g in ck.ck], curve.base, dev, mont=True)
+    gy = to_device([g[1] for g in ck.ck], curve.base, dev, mont=True)
+    nw = n_windows(FULL_BITS)
+    table = comb_build(gx, gy, nw, curve)
+    want, pms = once_ms(lambda: comb_build_plain(gx, gy, nw, curve))
+    same_or_raise(f"comb_build on Pallas ({nw} windows x {C})", table, want, F)
+    sc = rand_field(16 * C, F, gen, dev).reshape(16, C, 8)
+    want, rms = once_ms(lambda: comb_rows_plain(sc, table, curve))
+    same_or_raise("comb_rows on Pallas (16 x 64, full width)",
+                  comb_rows(sc, table, curve), want, F)
+    pts = to_jacobian(to_affine(comb_rows(sc, table, curve), curve), curve, dev)
+    ms_sc = rand_field(16, F, gen, dev)
+    want, mms = once_ms(lambda: msm_plain(ms_sc, pts, curve))
+    same_or_raise("msm on Pallas (16 points)", msm(ms_sc, pts, curve), want, F)
+    L = rand_field(256, F, gen, dev)
+    poly = rand_field(256 * C, F, gen, dev).reshape(256, C, 8)
+    want, hms = once_ms(lambda: hyrax_bind_plain(L, poly, F))
+    same_or_raise("hyrax_bind over Pallas's scalar field (256 x 64)",
+                  hyrax_bind(L, poly, F), want, F)
+    for name, fn, pm in (
+            ("Pallas comb_build 43 x 64", lambda: comb_build(gx, gy, nw, curve), pms),
+            ("Pallas comb_rows 16 x 64", lambda: comb_rows(sc, table, curve), rms),
+            ("Pallas msm 16 points", lambda: msm(ms_sc, pts, curve), mms),
+            ("Pallas hyrax_bind 256 x 64", lambda: hyrax_bind(L, poly, F), hms)):
+        detail.append({"name": name, "ms": cuda_ms(fn, 3), "plain_ms": pm})
+    return detail
+
+
+# ---------------------------------------------------------------------------
+# the mesh phase: W ranks on the one card, a gloo group
+# ---------------------------------------------------------------------------
+
+MESH_W = 2  # ranks of the SNARK proves
+SUMCHECK_W = 4  # ranks of the sharded sum-checks
+MESH_DEADLINE = 600  # seconds for one run of ranks
+# the main paths' configurations: SHA-256 over 1 KiB at Hyrax width 2048,
+# NeutronNova over NN_STEPS one-block steps
+MAIN_CFG = {"msg_len": 1024, "width": 2048, "nn_steps": NN_STEPS}
+
+
+def _sha_circuit(cfg: dict):
+    from spartan2_tpu_torch.frontend.gadgets.sha256 import Sha256Circuit
+
+    return Sha256Circuit(bytes(i & 0xFF for i in range(cfg["msg_len"])))
+
+
+def _path_kernels():
+    """Every CUDA source's kernel handle; NeutronNova's NIFS last."""
     from spartan2_tpu_torch.ec.comb import COMB
     from spartan2_tpu_torch.ec.msm import MSM
-    from spartan2_tpu_torch.frontend.gadgets.sha256 import Sha256Circuit
     from spartan2_tpu_torch.pcs.hyrax import HYRAX_BIND
-    from spartan2_tpu_torch.provider.engines import get_engine
     from spartan2_tpu_torch.r1cs.sparse import SPMV
     from spartan2_tpu_torch.sumcheck.device import CUBICEQ, SUMCHECK
     from spartan2_tpu_torch.sumcheck.nifs import NIFS
     from spartan2_tpu_torch.sumcheck.prove import ROUND_FINISH
     from spartan2_tpu_torch.transcript.device import TRANSCRIPT
+
+    return [SPMV, SUMCHECK, COMB, HYRAX_BIND, MSM, TRANSCRIPT, ROUND_FINISH, CUBICEQ, NIFS]
+
+
+def _gather_ms(mesh, rows: int, reps: int = 50) -> float:
+    """Host ms of one all_gather of a round's (rows, 3, 8) int32 partial
+    sums on the card, after a first one that lines the ranks up."""
+    part = torch.zeros(rows, 3, 8, dtype=torch.int32, device=mesh.device)
+    mesh.all_gather(part)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        mesh.all_gather(part)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def mesh_snark_rank(mesh, cfg: dict):
+    """A rank of the SNARK mesh: SpartanSNARK on SHA-256 1 KiB and
+    NeutronNovaZkSNARK on 16 SHA-256 steps, each set up on this rank and
+    proved on the mesh from the single-device run's seeds (the first
+    prove counted and kept, a second timed); rank 1 verifies both; the
+    precommitted witness's 256 rows committed row-sharded."""
+    from spartan2_tpu_torch.field.limbs import to_device
+    from spartan2_tpu_torch.frontend.gadgets.sha256 import Sha256Circuit
+    from spartan2_tpu_torch.parallel.sumcheck_shard import commit_rows_sharded
+    from spartan2_tpu_torch.pcs.hyrax import SMALL_BITS
+    from spartan2_tpu_torch.provider.engines import get_engine
+    from spartan2_tpu_torch.snark.neutronnova import NeutronNovaZkSNARK as NN
+    from spartan2_tpu_torch.snark.spartan import SpartanSNARK
+    from spartan2_tpu_torch.utils.serde import neutronnova_proof_to_bytes, spartan_proof_to_bytes
+
+    kernels = _path_kernels()
+    engine, circuit, dev = get_engine("P256HyraxEngine"), _sha_circuit(cfg), mesh.device
+    out = {"rank": mesh.rank, "backend": mesh.backend}
+    t0 = time.perf_counter()
+    pk, vk = SpartanSNARK.setup(engine, circuit, width=cfg["width"], device=dev)
+    prep = SpartanSNARK.prep_prove(pk, circuit, is_small=True, rng=det(1))
+    out["spartan_setup_prep_s"] = time.perf_counter() - t0
+    for k in kernels:
+        k.reset()
+    g0, gs0 = mesh.gathers, mesh.gather_s
+    (proof, _), t1 = _timed(lambda: SpartanSNARK.prove(
+        pk, circuit, prep, is_small=True, rng=det(2), mesh=mesh))
+    out["spartan_launches"] = {k.name: dict(k.entry_launches) for k in kernels}
+    out["spartan_gathers"] = [mesh.gathers - g0, mesh.gather_s - gs0]
+    _, t2 = _timed(lambda: SpartanSNARK.prove(pk, circuit, prep, is_small=True,
+                                              rng=det(3), mesh=mesh))
+    out["spartan_prove_s"] = [t1 / 1e3, t2 / 1e3]
+    out["spartan"] = spartan_proof_to_bytes(proof, engine)
+    if mesh.rank == 1:
+        out["spartan_verifies"] = SpartanSNARK.verify(proof, vk) == circuit.public_values()
+    S = pk.S
+    wit = prep.ps.W[S.num_shared : S.num_shared + S.num_precommitted]
+    scp = to_device(wit, engine.scalar, dev).reshape(-1, S.width, 8)
+    comb = pk.ck.comb(SMALL_BITS)
+    for k in kernels:
+        k.reset()
+    out["commit"] = commit_rows_sharded(mesh, comb, scp).cpu()
+    out["commit_launches"] = kernels[2].launches
+    out["commit_ms"] = _timed(lambda: commit_rows_sharded(mesh, comb, scp))[1]
+    out["gather_ms"] = {rows: _gather_ms(mesh, rows) for rows in (1, 1024)}
+    del pk, vk, prep, proof
+
+    n_steps = cfg["nn_steps"]
+    steps = [Sha256Circuit(bytes([i] * 55)) for i in range(n_steps)]
+    core = Sha256Circuit(bytes(55))
+    t0 = time.perf_counter()
+    npk, nvk = NN.setup(engine, steps[0], core, n_steps, width=cfg["width"], device=dev)
+    nprep = NN.prep_prove(npk, steps, core, is_small=True, rng=det(21))
+    out["nn_setup_prep_s"] = time.perf_counter() - t0
+    for k in kernels:
+        k.reset()
+    g0, gs0 = mesh.gathers, mesh.gather_s
+    (nproof, nprep), t1 = _timed(lambda: NN.prove(
+        npk, steps, core, nprep, is_small=True, rng=det(22), mesh=mesh))
+    out["nn_launches"] = {k.name: dict(k.entry_launches) for k in kernels}
+    out["nn_gathers"] = [mesh.gathers - g0, mesh.gather_s - gs0]
+    _, t2 = _timed(lambda: NN.prove(npk, steps, core, nprep, is_small=True,
+                                    rng=det(23), mesh=mesh))
+    out["nn_prove_s"] = [t1 / 1e3, t2 / 1e3]
+    out["nn"] = neutronnova_proof_to_bytes(nproof, engine)
+    if mesh.rank == 1:
+        out["nn_verifies"] = NN.verify(nproof, nvk, n_steps) == (
+            [c.public_values() for c in steps], core.public_values())
+    return out
+
+
+def _sumcheck_inputs(pk, prep, circuit) -> dict:
+    """SHA-256 1 KiB's outer and inner sum-check inputs on the host (as in
+    check_sumchecks (c)/(d)): Az/Bz/Cz, the taus, eff, the transcript
+    before each sum-check, poly_ABC, z and the inner claim."""
+    from spartan2_tpu_torch.snark.spartan import SpartanSNARK
+    from spartan2_tpu_torch.sumcheck.device import DOT, round_evals
+    from spartan2_tpu_torch.sumcheck.prove import prove_cubic_eq
+
+    F = pk.engine.scalar
+    S = pk.S
+    with torch.inference_mode():
+        transcript, U, W, z, taus, ABC = SpartanSNARK.instance(pk, circuit, prep, True,
+                                                               det(40))
+    t_outer = (transcript.state, transcript.round)
+    t = _clone(transcript)
+    _, rx, _ = prove_cubic_eq(t, taus, *[v.clone() for v in ABC], F)
+    abc = S.bind_and_prepare_poly_ABC(rx, random.Random(41).randrange(F.modulus))
+    claim = round_evals(DOT, S.num_cols, [abc, z], F)[0]
+    return {"ABC": ABC.cpu(), "taus": taus, "eff": S.num_cons_unpadded,
+            "t_outer": t_outer, "t_inner": (t.state, t.round), "abc": abc.cpu(),
+            "z": z.cpu(), "claim": claim, "nv": S.num_vars,
+            "ne": S.num_cols - S.num_vars}
+
+
+def run_sumchecks(inp: dict, engine: str, dev, mesh=None) -> dict:
+    """The prove's outer and inner sum-checks on ``inp`` (sharded
+    on ``mesh``), each run three times from the same inputs and timed on
+    the host to a synchronize -> the first run's coefficients, challenges,
+    finals and state, and the ms of every run."""
+    from spartan2_tpu_torch.field.limbs import to_device
+    from spartan2_tpu_torch.provider.engines import get_engine
+    from spartan2_tpu_torch.snark.spartan import SpartanSNARK
+    from spartan2_tpu_torch.transcript.device import DeviceTranscript, host_bytes
+
+    F = get_engine(engine).scalar
+    ABC, abc, z = (inp[k].to(dev) for k in ("ABC", "abc", "z"))
+    claim = to_device([inp["claim"]], F, dev, mont=True)[0]
+    out = {"outer_ms": [], "inner_ms": []}
+    for rep in range(3):
+        td = DeviceTranscript(F, state=host_bytes(inp["t_outer"][0], dev),
+                              round=inp["t_outer"][1])
+        (c, rx, fin), ms = _timed(lambda: SpartanSNARK.outer_sumcheck(
+            F, td, ABC.clone(), inp["taus"], inp["eff"], mesh))
+        out["outer_ms"].append(ms)
+        if rep == 0:
+            out["outer"] = [c.cpu(), rx.cpu(), torch.stack(fin).cpu(), td.state.cpu(),
+                            td.round]
+        td = DeviceTranscript(F, state=host_bytes(inp["t_inner"][0], dev),
+                              round=inp["t_inner"][1])
+        (ci, ry, ez), ms = _timed(lambda: SpartanSNARK.inner_sumcheck(
+            F, td, abc.clone(), z.clone(), claim, inp["nv"], inp["ne"], mesh))
+        out["inner_ms"].append(ms)
+        if rep == 0:
+            out["inner"] = [ci.cpu(), ry.cpu(), ez.cpu(), td.state.cpu(), td.round]
+    return out
+
+
+def mesh_sumcheck_rank(mesh, path: str, engine: str):
+    """A rank of the sum-check mesh: the sharded outer and inner sum-checks on
+    SHA-256 1 KiB's inputs (read from ``path``), with their gathers."""
+    from spartan2_tpu_torch.sumcheck.device import CUBICEQ
+
+    inp = torch.load(path, weights_only=False)
+    CUBICEQ.reset()
+    g0, gs0 = mesh.gathers, mesh.gather_s
+    out = run_sumchecks(inp, engine, mesh.device, mesh)
+    out["gathers"] = [mesh.gathers - g0, mesh.gather_s - gs0]
+    out["cubiceq_launches"] = CUBICEQ.launches
+    out["gather_ms"] = {rows: _gather_ms(mesh, rows) for rows in (1, 1024)}
+    return out
+
+
+def check_mesh_launches(ranks) -> None:
+    """Every rank's sharded proves launched the shard kernels."""
+    for out in ranks:
+        lz = out["spartan_launches"]
+        for kname, entry in (("cubiceq", "sp2_cubiceq_evals"),
+                             ("round_finish", "sp2_round_finish"),
+                             ("sumcheck", "sp2_round_evals"), ("sumcheck", "sp2_bind_dev"),
+                             ("sumcheck", "sp2_inner0_evals"), ("spmv", "sp2_spmv"),
+                             ("comb", "sp2_comb_rows"), ("hyrax_bind", "sp2_hyrax_bind")):
+            if lz[kname].get(entry, 0) <= 0:
+                raise RuntimeError(f"mesh: {kname}.{entry} not launched by the sharded "
+                                   "SpartanSNARK prove")
+        ln = out["nn_launches"]
+        for kname, entry in (("sumcheck", "sp2_round_evals"), ("sumcheck", "sp2_bind"),
+                             ("nifs", "sp2_nifs_round")):
+            if ln[kname].get(entry, 0) <= 0:
+                raise RuntimeError(f"mesh: {kname}.{entry} not launched by the sharded "
+                                   "NN prove")
+        if out["commit_launches"] <= 0:
+            raise RuntimeError("mesh: commit_rows_sharded launched no comb kernel")
+
+
+def run_mesh(pk, prep, nn_pk, blobs: dict, cfg: dict = MAIN_CFG):
+    """The mesh phase on the configurations ``cfg`` of ``pk``, ``prep``,
+    ``nn_pk`` and the single-device proofs ``blobs`` -> (kernel records,
+    detail records)."""
+    import tempfile
+
+    from spartan2_tpu_torch.ec.comb import comb_rows, comb_rows_plain, scalar_digits
+    from spartan2_tpu_torch.field.limbs import limbs_to_ints, to_device
+    from spartan2_tpu_torch.parallel.mesh import run_ranks
+    from spartan2_tpu_torch.pcs.hyrax import SMALL_BITS
+    from spartan2_tpu_torch.polys.eq import eq_evals_host
+    from spartan2_tpu_torch.sumcheck.device import (CUBIC, QUAD, cubiceq_evals,
+                                                    cubiceq_evals_plain,
+                                                    round_evals_batched,
+                                                    round_evals_batched_plain)
+
+    engine, S, dev = pk.engine, pk.S, pk.device
+    F = engine.scalar
+    p = F.modulus
+    phases = {}
+
+    # (m1) SpartanSNARK and NeutronNova on MESH_W ranks, against this run's
+    # single-device proofs from the same seeds
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_snark_rank, MESH_W, (cfg,), device=dev, timeout=MESH_DEADLINE)
+    phases["snark_ranks_s"] = time.perf_counter() - t0
+    for out in ranks:
+        for name in ("spartan", "nn"):
+            if out[name] != blobs[name]:
+                raise RuntimeError(f"mesh: rank {out['rank']}'s {name} proof differs from "
+                                   "the single-device proof")
+    check_mesh_launches(ranks)
+    if not (ranks[1]["spartan_verifies"] and ranks[1]["nn_verifies"]):
+        raise RuntimeError("mesh: a mesh proof does not verify")
+    print(f"mesh: {MESH_W} ranks ({ranks[0]['backend']}) on one card: SpartanSNARK "
+          f"SHA-256 1 KiB proof equal to the single-device proof "
+          f"({len(blobs['spartan'])} bytes) and verified; NeutronNova {cfg['nn_steps']} steps "
+          f"equal ({len(blobs['nn'])} bytes) and verified", flush=True)
+    # the precommitted witness's rows, committed row-sharded and whole
+    wit = prep.ps.W[S.num_shared : S.num_shared + S.num_precommitted]
+    scp = to_device(wit, F, dev).reshape(-1, S.width, 8)
+    comb = pk.ck.comb(SMALL_BITS)
+    whole = comb_rows(scp, comb.table, comb.curve)
+    for out in ranks:
+        if not torch.equal(out["commit"], whole.cpu()):
+            raise RuntimeError("mesh: commit_rows_sharded differs from comb_rows")
+    print(f"mesh: commit_rows_sharded over {scp.shape[0]} rows x {scp.shape[1]} at "
+          f"W = {MESH_W} equals comb_rows", flush=True)
+    for key in ("spartan_setup_prep_s", "spartan_prove_s", "spartan_gathers",
+                "nn_setup_prep_s", "nn_prove_s", "nn_gathers", "commit_ms", "gather_ms"):
+        phases[key] = [out[key] for out in ranks]
+    print("mesh launches of the ranks' first sharded proves: " + json.dumps(
+        {f"rank {out['rank']}": {"spartan": out["spartan_launches"],
+                                 "nn": out["nn_launches"],
+                                 "commit": out["commit_launches"]} for out in ranks}),
+          flush=True)
+
+    # (m2) the outer and inner sum-checks at SUMCHECK_W ranks against one device
+    inp = _sumcheck_inputs(pk, prep, _sha_circuit(cfg))
+    single = run_sumchecks(inp, pk.engine.name, dev)
+    with tempfile.TemporaryDirectory(prefix="sp2-sumchecks-") as tmp:
+        path = f"{tmp}/inputs.pt"
+        torch.save(inp, path)
+        t0 = time.perf_counter()
+        dranks = run_ranks(mesh_sumcheck_rank, SUMCHECK_W, (path, pk.engine.name),
+                           device=dev, timeout=MESH_DEADLINE)
+        phases["sumcheck_ranks_s"] = time.perf_counter() - t0
+    for out in dranks:
+        for name in ("outer", "inner"):
+            if not all((torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
+                       for a, b in zip(out[name], single[name])):
+                raise RuntimeError(f"mesh: the sharded {name} sum-check differs from the "
+                                   "single-device prover")
+    phases["single_outer_ms"], phases["single_inner_ms"] = (single["outer_ms"],
+                                                            single["inner_ms"])
+    for key in ("outer_ms", "inner_ms", "gathers", "gather_ms"):
+        phases[f"sharded_{key}"] = [out[key] for out in dranks]
+    m = len(inp["taus"])
+    print(f"mesh: the sharded outer (2^{m}, peeled) and inner sum-checks at W = "
+          f"{SUMCHECK_W} equal the single-device provers (coefficients, challenges, "
+          "finals, state)", flush=True)
+
+    # (m3) kernel G's strided mode at the sum-check mesh's shard shape, s = 0
+    # and s = W - 1, against its plain version on the card
+    taus, eff = inp["taus"], inp["eff"]
+    fh, lw, n = m // 2, SUMCHECK_W.bit_length() - 1, 1 << m
+    EL = to_device(eq_evals_host(F, taus[1:fh]), F, dev, mont=True)
+    ER = to_device(eq_evals_host(F, taus[fh:]), F, dev, mont=True)
+    ABC = inp["ABC"].to(dev)
+    half_loc, hi_len = n // 2 // SUMCHECK_W, eff - n // 2
+    out_k, detail = [], []
+    for s in (0, SUMCHECK_W - 1):
+        loc = [v[:n][s::SUMCHECK_W].contiguous() for v in ABC]
+        live = min(half_loc, max(0, -(-(hi_len - s) // SUMCHECK_W)))
+        args = (half_loc, live, EL, ER, m - fh, True, False, F, s, lw)
+        got = cubiceq_evals(*loc, *args)
+        want, pms = once_ms(lambda: cubiceq_evals_plain(*loc, *args))
+        gs = [sum(col) % p for col in zip(*[limbs_to_ints(b, F, mont=True)
+                                            for b in got.cpu()])]
+        if gs != limbs_to_ints(want[0], F, mont=True):
+            raise RuntimeError(f"kernel G (shard {s} of {SUMCHECK_W}) differs from its plain "
+                               "version")
+        print(f"equal to plain: cubiceq_evals strided (peeled round 0, shard {s} of "
+              f"{SUMCHECK_W}, {half_loc} local pairs, {live} live)", flush=True)
+    g_launches = sum(out["spartan_launches"]["cubiceq"].get("sp2_cubiceq_evals", 0)
+                     for out in ranks)
+    out_k.append(kernel_record(
+        "cubiceq_strided", "spartan2_tpu/parallel/sumcheck_shard.py:199", g_launches,
+        f"sp2_cubiceq_evals calls of the {MESH_W} ranks' sharded SpartanSNARK prove",
+        cuda_ms(lambda: cubiceq_evals(*loc, *args), 10), pms,
+        2 * (half_loc + live) * 32 + (EL.shape[0] + ER.shape[0]) * 32
+        + 3 * 32 * got.shape[0], 3 * half_loc, source="spartan2_tpu_torch/csrc/cubiceq.cu"))
+
+    # (m4) the other kernels at the shard shapes of the MESH_W mesh: kernel
+    # A QUAD over an inner shard, kernel A CUBIC over NN's outer shard
+    # (K = 2), comb rows over a rank's rows
+    gen = torch.Generator().manual_seed(9)
+
+    def shard_plain(name, mode, rows, vecs) -> float:
+        """Kernel A's sums against its plain version -> the plain ms."""
+        want, ms = once_ms(lambda: round_evals_batched_plain(mode, rows, vecs, F))
+        same_or_raise(name, sum(round_evals_batched(mode, rows, vecs, F), []),
+                      want.reshape(-1, 8), F)
+        return ms
+
+    nq = S.num_vars // MESH_W
+    vq = [rand_field(nq, F, gen, dev) for _ in range(2)]
+    detail.append(detail_record(
+        f"shard_quad_step: round_evals quad over a W = {MESH_W} shard, {nq} rows",
+        cuda_ms(lambda: round_evals_batched(QUAD, nq, vq, F), 10),
+        shard_plain(f"round_evals quad (inner shard, {nq} rows)", QUAD, nq, vq),
+        2 * nq * 32, nq))
+    nc = nn_pk.S_step.num_cons // MESH_W
+    E = rand_field(nc, F, gen, dev)
+    vk3 = [rand_field(2 * nc, F, gen, dev).reshape(2, nc, 8) for _ in range(3)]
+    detail.append(detail_record(
+        f"shard_zkc_evals: round_evals cubic K = 2 over a W = {MESH_W} shard, {nc} rows",
+        cuda_ms(lambda: round_evals_batched(CUBIC, nc, [E, *vk3], F), 10),
+        shard_plain(f"round_evals cubic K = 2 (NN outer shard, {nc} rows)", CUBIC, nc,
+                    [E, *vk3]),
+        (nc + 6 * nc) * 32, 2 * 6 * (nc // 2)))
+    ncub = S.num_cons // MESH_W
+    vc4 = [rand_field(ncub, F, gen, dev) for _ in range(4)]
+    detail.append(detail_record(
+        f"shard_cubic_step: round_evals cubic over a W = {MESH_W} shard, {ncub} rows",
+        cuda_ms(lambda: round_evals_batched(CUBIC, ncub, vc4, F), 10),
+        shard_plain(f"round_evals cubic (explicit-eq shard, {ncub} rows)", CUBIC, ncub,
+                    vc4),
+        4 * ncub * 32, 6 * (ncub // 2)))  # per pair: A B and eq (A B - C) at 0, 2, 3
+    nzq = nn_pk.S_step.num_vars // MESH_W
+    vzq = [rand_field(2 * nzq, F, gen, dev).reshape(2, nzq, 8) for _ in range(2)]
+    detail.append(detail_record(
+        f"shard_zkq_evals: round_evals quad K = 2 over a W = {MESH_W} shard, {nzq} rows",
+        cuda_ms(lambda: round_evals_batched(QUAD, nzq, vzq, F), 10),
+        shard_plain(f"round_evals quad K = 2 (NN inner shard, {nzq} rows)", QUAD, nzq,
+                    vzq),
+        4 * nzq * 32, 2 * nzq))
+    per = scp.shape[0] // MESH_W
+    mine = scp[:per].contiguous()
+    nz = int((scalar_digits(mine, comb.n_win) != 0).sum())
+    want, cpms = once_ms(lambda: comb_rows_plain(mine, comb.table, comb.curve))
+    same_or_raise(f"comb_rows over a rank's {per} rows", comb_rows(mine, comb.table,
+                                                                  comb.curve), want, F)
+    detail.append(detail_record(
+        f"commit_rows_sharded: comb_rows over a rank's {per} x {S.width}",
+        cuda_ms(lambda: comb_rows(mine, comb.table, comb.curve), 3), cpms,
+        per * S.width * 32 + nz * 96 + per * 96,
+        (nz + per * (S.width - 1)) * MONT_MULS_PER_ADD))
+    rounds = sum(g[0] for out in ranks for g in [out["spartan_gathers"]])
+    gather_ms = [1e3 * out["spartan_gathers"][1] / max(1, out["spartan_gathers"][0])
+                 for out in ranks]
+    phases["gather_ms_per_call_spartan"] = gather_ms
+    phases["gather_calls_spartan"] = rounds
+    print(f"mesh ranks: {MESH_W} (SNARKs) and {SUMCHECK_W} (sum-checks), backend "
+          f"{ranks[0]['backend']}, all on {dev}", flush=True)
+    print("mesh phases: " + json.dumps(phases), flush=True)
+    return out_k, detail
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from spartan2_tpu_torch.provider.engines import get_engine
     from spartan2_tpu_torch.utils.cuda import build_all
 
     card = card_line()
     print(f"card: {card}", flush=True)
-    spartan_kernels = [SPMV, SUMCHECK, COMB, HYRAX_BIND, MSM, TRANSCRIPT, ROUND_FINISH,
-                       CUBICEQ]
-    kernels = spartan_kernels + [NIFS]
+    kernels = _path_kernels()
+    spartan_kernels = kernels[:-1]  # all but NIFS
     print(f"build: {build_all(kernels):.1f} s (nvcc, {len(kernels)} sources in "
           "parallel)", flush=True)
     for k in kernels:
@@ -1497,11 +1940,11 @@ def main() -> int:
         print(f"ptxas {k.name}: " + " | ".join(regs[:12]), flush=True)
     dev = torch.device("cuda")
     engine = get_engine("P256HyraxEngine")
-    circuit = Sha256Circuit(bytes(i & 0xFF for i in range(1024)))
+    circuit = _sha_circuit(MAIN_CFG)
 
-    pk, prep, proof, launches = run_spartan(engine, circuit, dev, spartan_kernels)
+    pk, prep, proof, launches, blob = run_spartan(engine, circuit, dev, spartan_kernels)
     zk_proof, zk_launches = run_spartan_zk(engine, pk.S, circuit, dev, spartan_kernels)
-    nn_pk, nn_prep, nn_proof, nn_launches = run_neutronnova(engine, dev, kernels)
+    nn_pk, nn_prep, nn_proof, nn_launches, nn_blob = run_neutronnova(engine, dev, kernels)
     check_golden_cubic(dev, zk=False)
     check_golden_cubic(dev, zk=True)
     for name in ("square", "precommitted"):
@@ -1511,9 +1954,12 @@ def main() -> int:
     out, detail = compare_kernels(pk, prep, proof, launches)
     zk_out, zk_detail = compare_zk_kernels(pk.S, zk_proof, proof, zk_launches)
     nn_out, nn_detail = compare_nn_kernels(nn_pk, nn_prep, nn_proof, nn_launches)
+    p_detail = check_pallas(dev)
+    m_out, m_detail = run_mesh(pk, prep, nn_pk, {"spartan": blob, "nn": nn_blob})
     print("kernel details (ms, bound_ms): " + json.dumps(
-        detail + zk_detail + nn_detail + t_detail + s_detail), flush=True)
-    print(json.dumps({"kernels": out + zk_out + nn_out + t_out + s_out}), flush=True)
+        detail + zk_detail + nn_detail + t_detail + s_detail + p_detail + m_detail),
+        flush=True)
+    print(json.dumps({"kernels": out + zk_out + nn_out + t_out + s_out + m_out}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

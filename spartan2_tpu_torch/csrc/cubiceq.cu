@@ -22,6 +22,14 @@
 // peeled round 0 of a padded R1CS passes hi_len = live rows x R, so a dead
 // row adds A_lo B_lo to tinf (fused.py:340-356).
 //
+// Shard stride (the port's sharded outer sum-check, parallel/sumcheck_shard.py):
+// rank s of W = 2^lw holds the global rows s + W i in local order, so its
+// local pair i is global pair g = s + (i << lw) and takes the weight of g;
+// half and hi_len stay local.  s = 0, lw = 0 is the unsharded round.  This
+// replaces the sums of the JAX package's shard_cubiceq_step
+// (spartan2_tpu/parallel/sumcheck_shard.py:199) and fused_sharded_cubiceq
+// (spartan2_tpu/parallel/fused_shard.py:209).
+//
 // Bound: per pair 5 Montgomery products (2 more with the fallback, 1 less
 // one-level, 2 less with zero_check) over 128-192 bytes read: the products bound
 // it, as in kernel A.
@@ -33,15 +41,17 @@ using namespace sp2;
 constexpr int NT = 256;
 
 __global__ void cubiceq_evals_kernel(size_t half, size_t hi_len, int rlog, int zero_check,
-                                     int fallback, const uint32_t* EL, const uint32_t* ER,
+                                     int fallback, size_t shard, int lw,
+                                     const uint32_t* EL, const uint32_t* ER,
                                      const uint32_t* A, const uint32_t* B,
                                      const uint32_t* C, uint32_t* partial, Field F) {
   const size_t mask = ((size_t)1 << rlog) - 1;
   Fe s0 = fe_zero(), s1 = fe_zero(), s2 = fe_zero();
   for (size_t i = blockIdx.x * (size_t)NT + threadIdx.x; i < half;
        i += (size_t)gridDim.x * NT) {
-    const Fe w = EL != nullptr ? fe_mul(fe_load(EL, i >> rlog), fe_load(ER, i & mask), F)
-                               : fe_load(ER, i);
+    const size_t g = shard + (i << lw);
+    const Fe w = EL != nullptr ? fe_mul(fe_load(EL, g >> rlog), fe_load(ER, g & mask), F)
+                               : fe_load(ER, g);
     const bool live = i < hi_len;
     const Fe a0 = fe_load(A, i), b0 = fe_load(B, i);
     const Fe a1 = live ? fe_load(A, half + i) : fe_zero();
@@ -64,14 +74,16 @@ __global__ void cubiceq_evals_kernel(size_t half, size_t hi_len, int rlog, int z
 }
 
 extern "C" int sp2_cubiceq_evals(size_t half, size_t hi_len, int rlog, int zero_check,
-                                 int fallback, const void* EL, const void* ER,
+                                 int fallback, size_t shard, int lw, const void* EL,
+                                 const void* ER,
                                  const void* A, const void* B, const void* C,
                                  void* partial, int nblocks, const uint32_t* field_words,
                                  void* stream) {
-  if (nblocks < 1 || hi_len > half || rlog < 0 || rlog > 40)
+  if (nblocks < 1 || hi_len > half || rlog < 0 || rlog > 40 || lw < 0 || lw > 20 ||
+      shard >= ((size_t)1 << lw))
     return (int)cudaErrorInvalidValue;
   cubiceq_evals_kernel<<<nblocks, NT, 0, (cudaStream_t)stream>>>(
-      half, hi_len, rlog, zero_check, fallback, (const uint32_t*)EL,
+      half, hi_len, rlog, zero_check, fallback, shard, lw, (const uint32_t*)EL,
       (const uint32_t*)ER, (const uint32_t*)A, (const uint32_t*)B, (const uint32_t*)C,
       (uint32_t*)partial, field_from_words(field_words));
   return (int)cudaGetLastError();

@@ -6,6 +6,11 @@ function works on int64 tensors of sixteen 16-bit digits, so a digit
 product is below 2^32 and a column of sixteen products plus the
 Montgomery fold stays below 2^38: no intermediate can overflow int64.
 
+A small batch on the CPU (up to ``_SMALL`` elements) takes Python's
+integers instead: the same values, without the per-operation cost of some
+seventy small tensor operations, which dominates the plain curve
+arithmetic's long chains of doublings on a handful of points.
+
 This is the plain version of the device functions in csrc/field.cuh,
 which replace ``FieldOps`` of the JAX package (field/jnp_ops.py: add/sub
 :126-146, mont_mul :185, to_mont/from_mont :211-228, inv/batch_inv
@@ -71,16 +76,46 @@ def _reduce_once(t: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     return torch.where(w[_D] < 0, t[:_D], w[:_D])
 
 
+_SMALL = 256
+
+
+def _small(a: torch.Tensor) -> bool:
+    return a.device.type == "cpu" and a.numel() <= 8 * _SMALL
+
+
+def _ints(a: torch.Tensor) -> list[int]:
+    raw = a.contiguous().numpy().tobytes()
+    return [int.from_bytes(raw[i : i + 32], "little") for i in range(0, len(raw), 32)]
+
+
+def _tensor(vals, shape) -> torch.Tensor:
+    if not vals:
+        return torch.empty(shape, dtype=torch.int32)
+    raw = bytearray(b"".join(v.to_bytes(32, "little") for v in vals))
+    return torch.frombuffer(raw, dtype=torch.int32).reshape(shape)
+
+
+def _small_op(a: torch.Tensor, b: torch.Tensor, fn) -> torch.Tensor:
+    a, b = torch.broadcast_tensors(a, b)
+    return _tensor([fn(x, y) for x, y in zip(_ints(a), _ints(b))], a.shape)
+
+
 def _extend(d: torch.Tensor) -> torch.Tensor:
     return torch.cat([d, torch.zeros_like(d[:1])])
 
 
 def add(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    if _small(a) and _small(b):
+        p = spec.modulus
+        return _small_op(a, b, lambda x, y: (x + y) % p)
     t = _carry(_extend(_digits(a) + _digits(b)))
     return _limbs(_reduce_once(t, spec))
 
 
 def sub(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    if _small(a) and _small(b):
+        p = spec.modulus
+        return _small_op(a, b, lambda x, y: (x - y) % p)
     t = _carry(_extend(_digits(a) - _digits(b)))
     plus = t[:_D] + _p_digits(spec, a.device, t.dim() - 1)
     _carry(plus)
@@ -102,6 +137,9 @@ def _redc(t: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     """a * b * 2^-256 mod p (word-by-word REDC over 16-bit digits)."""
+    if _small(a) and _small(b):
+        p, r_inv = spec.modulus, spec.r_inv
+        return _small_op(a, b, lambda x, y: x * y * r_inv % p)
     a, b = torch.broadcast_tensors(a, b)
     A, B = _digits(a), _digits(b)
     t = torch.zeros(2 * _D + 1, *A.shape[1:], dtype=torch.int64, device=a.device)

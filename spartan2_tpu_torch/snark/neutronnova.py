@@ -36,6 +36,7 @@ from ..errors import (DivisionByZeroError, InvalidInputLengthError, ProofVerifyE
 from ..field.limbs import to_device
 from ..polys.eq import eq_evaluate, pow_evaluate, pow_generators
 from ..polys.multilinear import sparse_poly_evaluate_host
+from ..parallel.sumcheck_shard import ShardedZkSumcheckCubic, ShardedZkSumcheckQuad
 from ..polys.univariate import UniPoly
 from ..provider.engines import Engine
 from ..r1cs.multiround import (MultiRoundState, SplitMultiRoundR1CSInstance,
@@ -347,7 +348,15 @@ class NeutronNovaZkSNARK:
     @staticmethod
     @torch.inference_mode()
     def prove(pk: NeutronNovaProverKey, step_circuits, core_circuit,
-              prep: NeutronNovaPrep, is_small: bool = False, rng=None):
+              prep: NeutronNovaPrep, is_small: bool = False, rng=None, mesh=None):
+        """A proof.  With ``mesh`` (parallel/mesh.py), every rank of it
+        calls prove with the same arguments: the outer and inner ZK
+        sum-checks run sharded across the ranks, the rest replicated, and
+        every rank returns the single-device proof.  The ranks must draw
+        the same blinds: pass one deterministic ``rng`` to each, or None,
+        and rank 0's seed drives every rank's draws."""
+        if mesh is not None and rng is None:
+            rng = mesh.common_rng()
         engine = pk.engine
         F = engine.scalar
         p = F.modulus
@@ -434,8 +443,12 @@ class NeutronNovaZkSNARK:
 
         with span("nn_outer_zk_sumcheck"):
             stack3 = tuple(torch.stack([s, c]) for s, c in zip((AzF, BzF, CzF), ABC_c))
-            r_x, finals_outer, tau_rx = prove_zk_cubic(F, [t_out, 0], E, stack3,
-                                                       outer_challenge)
+            if mesh is None:
+                r_x, finals_outer, tau_rx = prove_zk_cubic(F, [t_out, 0], E, stack3,
+                                                           outer_challenge)
+            else:
+                r_x, finals_outer, tau_rx = ShardedZkSumcheckCubic(F, mesh).prove(
+                    [t_out, 0], E, stack3, outer_challenge)
         claims_s, claims_c = finals_outer
         vc.claim_Az_step, vc.claim_Bz_step, vc.claim_Cz_step = claims_s
         vc.claim_Az_core, vc.claim_Bz_core, vc.claim_Cz_core = claims_c
@@ -475,8 +488,12 @@ class NeutronNovaZkSNARK:
         with span("nn_inner_zk_sumcheck"):
             r0, _, claims_r0 = inner_round0(F, [claim_inner_s, claim_inner_c], abc_k,
                                             z_k, num_vars, ne, inner0_challenge)
-            r_y_rest, finals_inner = prove_zk_quad(F, claims_r0, (abc_k, z_k),
-                                                   num_rounds_y - 1, inner_challenge)
+            if mesh is None:
+                r_y_rest, finals_inner = prove_zk_quad(F, claims_r0, (abc_k, z_k),
+                                                       num_rounds_y - 1, inner_challenge)
+            else:
+                r_y_rest, finals_inner = ShardedZkSumcheckQuad(F, mesh).prove(
+                    claims_r0, (abc_k, z_k), num_rounds_y - 1, inner_challenge)
         r_y = [r0] + r_y_rest
         eval_Z_step = finals_inner[0][1]
         eval_Z_core = finals_inner[1][1]

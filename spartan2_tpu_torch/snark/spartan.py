@@ -33,6 +33,7 @@ from ..polys.multilinear import sparse_poly_evaluate_host
 from ..polys.univariate import UniPoly
 from ..provider.engines import Engine
 from ..r1cs.shape import R1CSWitness, SplitR1CSInstance, SplitR1CSShape
+from ..parallel.sumcheck_shard import ShardedSumcheckCubicEq, ShardedSumcheckQuad
 from ..sumcheck.prove import SpartanInnerRound0, SumcheckProverCubicEq, SumcheckProverQuad
 from ..sumcheck.verify import SumcheckProof
 from ..transcript.device import DeviceTranscript
@@ -389,32 +390,45 @@ class SpartanSNARK:
         return transcript, U, W, z, taus, ABC
 
     @staticmethod
-    def outer_sumcheck(F, td: DeviceTranscript, ABC, taus: list[int], eff: int):
+    def outer_sumcheck(F, td: DeviceTranscript, ABC, taus: list[int], eff: int,
+                       mesh=None):
         """The outer sum-check on the device transcript, Az/Bz/Cz zero past
         the ``eff`` unpadded constraints (round 0 reads the upper half only
-        below it) -> (coeffs (m, 4, 8), challenges (m, 2, 8), finals)."""
+        below it), sharded across ``mesh`` when each rank gets two rows or
+        more -> (coeffs (m, 4, 8), challenges (m, 2, 8), finals)."""
         zero = torch.zeros(8, dtype=torch.int32, device=ABC.device)
-        return SumcheckProverCubicEq(F).prove(td, ABC[0], ABC[1], ABC[2], zero, taus,
-                                              zero_check=True, eff=eff)[:3]
+        prover = (SumcheckProverCubicEq(F) if mesh is None
+                  else ShardedSumcheckCubicEq(F, mesh))
+        return prover.prove(td, ABC[0], ABC[1], ABC[2], zero, taus, zero_check=True,
+                            eff=eff)[:3]
 
     @staticmethod
     def inner_sumcheck(F, td: DeviceTranscript, abc, z, claim, num_vars: int,
-                       num_extra: int):
+                       num_extra: int, mesh=None):
         """The inner sum-check over the 2 num_vars domain, on the device
         transcript: kernel B's structured round 0 over abc and z at width
-        num_cols (both zero past it), then the quad rounds over num_vars
+        num_cols (both zero past it), then the quad rounds over num_vars,
+        sharded across ``mesh`` when each rank gets two rows or more
         -> (coeffs (1 + n, 3, 8), challenges (1 + n, 2, 8), eval_Z)."""
         claim0, r0, coeffs0 = SpartanInnerRound0(F).run(td, abc, z, claim, num_vars,
                                                         num_extra)
         n = _log2(num_vars)
-        cq, rq, finals, _ = SumcheckProverQuad(F).prove(td, abc[:num_vars], z[:num_vars],
-                                                        claim0, n)
+        prover = SumcheckProverQuad(F) if mesh is None else ShardedSumcheckQuad(F, mesh)
+        cq, rq, finals, _ = prover.prove(td, abc[:num_vars], z[:num_vars], claim0, n)
         return torch.cat([coeffs0[None], cq]), torch.cat([r0[None], rq]), finals[1]
 
     @staticmethod
     @torch.inference_mode()
     def prove(pk: SpartanProverKey, circuit, prep: SpartanPrepSNARK,
-              is_small: bool = False, rng=None):
+              is_small: bool = False, rng=None, mesh=None):
+        """A proof.  With ``mesh`` (parallel/mesh.py), every rank of it
+        calls prove with the same arguments: the outer sum-check and the
+        inner quad rounds run sharded across the ranks, the rest
+        replicated, and every rank returns the single-device proof.  The
+        ranks must draw the same blinds: pass one deterministic ``rng`` to
+        each, or None, and rank 0's seed drives every rank's draws."""
+        if mesh is not None and rng is None:
+            rng = mesh.common_rng()
         engine = pk.engine
         S = pk.S
         F = engine.scalar
@@ -430,7 +444,7 @@ class SpartanSNARK:
         td = DeviceTranscript.from_host(transcript, device)
         with span("outer_sumcheck"):
             coeffs_outer, rx_pairs, finals = SpartanSNARK.outer_sumcheck(
-                F, td, ABC, taus, S.num_cons_unpadded)
+                F, td, ABC, taus, S.num_cons_unpadded, mesh)
             td.absorb_scalars_mont(b"claims_outer", torch.stack(finals))
             r_dev = td.squeeze_mont(b"r")
         with span("outer_sync_pull"):  # the one pull of the outer sum-check
@@ -445,7 +459,7 @@ class SpartanSNARK:
         with span("inner_sumcheck"):
             claim_dev = _upload_mont(engine, [claim_inner], device)[0]
             coeffs_inner, ry_pairs, eval_Z_dev = SpartanSNARK.inner_sumcheck(
-                F, td, abc, z, claim_dev, num_vars, S.num_cols - num_vars)
+                F, td, abc, z, claim_dev, num_vars, S.num_cols - num_vars, mesh)
         with span("tail_sync_pull"):  # state, coefficients, challenges: one pull
             arr = torch.cat([
                 td.state.view(torch.int32).reshape(2, 8), coeffs_outer.reshape(-1, 8),

@@ -35,7 +35,7 @@ SUMCHECK = CudaKernel("sumcheck", {
     "sp2_inner0_bind_dev": [SZ, SZ, I, P, P, P, P, P, P],
 })
 CUBICEQ = CudaKernel("cubiceq", {
-    "sp2_cubiceq_evals": [SZ, SZ, I, I, I, P, P, P, P, P, P, I, P],
+    "sp2_cubiceq_evals": [SZ, SZ, I, I, I, SZ, I, P, P, P, P, P, P, I, P],
 })
 
 CUBIC, QUAD, DOT = 0, 1, 2
@@ -219,10 +219,16 @@ def round_evals_batched(mode: int, n: int, vecs: list,
         s(X) = sum_j eq(X) (A(X) B(X) - C(X)) over the n/2 pairs;
     QUAD -> [sum A_lo B_lo, sum (A_hi - A_lo)(B_hi - B_lo)];
     DOT -> [sum A B] over the first n entries."""
+    return _pull(round_sums_batched(mode, n, vecs, spec), spec,
+                 _check_round_vecs(mode, vecs))
+
+
+def round_sums_batched(mode: int, n: int, vecs: list, spec: FieldSpec) -> torch.Tensor:
+    """``round_evals_batched`` left on the device: (K, sums, 8) Montgomery."""
     K = _check_round_vecs(mode, vecs)
     if vecs[0].device.type == "cpu":
-        return _pull(round_evals_batched_plain(mode, n, vecs, spec), spec, K)
-    return _pull(_round_launch(mode, n, vecs, spec, True)[1], spec, K)
+        return round_evals_batched_plain(mode, n, vecs, spec)
+    return _round_launch(mode, n, vecs, spec, True)[1].view(K, _NSUMS[mode], 8)
 
 
 def round_partials(mode: int, n: int, vecs: list, spec: FieldSpec) -> torch.Tensor:
@@ -430,11 +436,12 @@ def inner0_partials(abc: torch.Tensor, z: torch.Tensor, num_vars: int, num_extra
 
 def cubiceq_evals_plain(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, half: int,
                         hi_len: int, EL, ER: torch.Tensor, rlog: int, zero_check: bool,
-                        fallback: bool, spec: FieldSpec) -> torch.Tensor:
+                        fallback: bool, spec: FieldSpec, shard: int = 0,
+                        lw: int = 0) -> torch.Tensor:
     """Plain version of ``cubiceq_evals``: (1, 3, 8) Montgomery sums."""
-    i = torch.arange(half, device=A.device)
-    w = ER[:half] if EL is None else ops.mont_mul(EL[i >> rlog], ER[i & ((1 << rlog) - 1)],
-                                                  spec)
+    g = shard + (torch.arange(half, device=A.device) << lw)
+    w = ER[g] if EL is None else ops.mont_mul(EL[g >> rlog], ER[g & ((1 << rlog) - 1)],
+                                              spec)
 
     def halves(v):
         hi = torch.zeros_like(v[:half])
@@ -459,27 +466,34 @@ def cubiceq_evals_plain(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, half:
 
 def cubiceq_evals(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, half: int,
                   hi_len: int, EL, ER: torch.Tensor, rlog: int, zero_check: bool,
-                  fallback: bool, spec: FieldSpec) -> torch.Tensor:
+                  fallback: bool, spec: FieldSpec, shard: int = 0,
+                  lw: int = 0) -> torch.Tensor:
     """Kernel G: the sums of one Gruen round over the low half [0, half)
     of A, B, C ((rows, 8) Montgomery), the high half read below hi_len and
-    zero past it, against w_i = EL[i >> rlog] ER[i mod 2^rlog] (EL a
-    tensor) or ER[i] (EL None) -> (nblocks, 3, 8) partial sums of t0
+    zero past it, against w_g = EL[g >> rlog] ER[g mod 2^rlog] (EL a
+    tensor) or ER[g] (EL None) -> (nblocks, 3, 8) partial sums of t0
     (zero with zero_check), tinf and, with fallback, t(-1)
-    (csrc/cubiceq.cu)."""
+    (csrc/cubiceq.cu).  Local pair i is global pair g = shard + (i << lw):
+    rank ``shard`` of 2^lw holding the rows shard + 2^lw i (half and hi_len
+    local); shard = lw = 0 unsharded."""
+    if not 0 <= shard < 1 << lw:
+        raise ValueError("cubiceq_evals: need 0 <= shard < 2^lw")
     if A.device.type == "cpu":
         return cubiceq_evals_plain(A, B, C, half, hi_len, EL, ER, rlog, zero_check,
-                                   fallback, spec)
+                                   fallback, spec, shard, lw)
     if not 0 <= hi_len <= half:
         raise ValueError("cubiceq_evals: need 0 <= hi_len <= half")
     tables = [ER] if EL is None else [EL, ER]
     _check_vecs([A, B, C], half + hi_len)
     check_cuda(A, *tables)
-    if ER.shape[0] < (half if EL is None else 1 << rlog) or (
-            EL is not None and EL.shape[0] << rlog < half):
+    glob = half << lw  # the global pairs the weights cover
+    if ER.shape[0] < (glob if EL is None else 1 << rlog) or (
+            EL is not None and EL.shape[0] << rlog < glob):
         raise ValueError("cubiceq_evals: weight tables too short")
     nblocks = _nblocks(half)
     partial = torch.empty(nblocks, 3, 8, dtype=torch.int32, device=A.device)
     CUBICEQ.call("sp2_cubiceq_evals", half, hi_len, rlog, int(zero_check), int(fallback),
-                 None if EL is None else EL.data_ptr(), ER.data_ptr(), A.data_ptr(),
-                 B.data_ptr(), C.data_ptr(), partial.data_ptr(), nblocks, field_words(spec))
+                 shard, lw, None if EL is None else EL.data_ptr(), ER.data_ptr(),
+                 A.data_ptr(), B.data_ptr(), C.data_ptr(), partial.data_ptr(), nblocks,
+                 field_words(spec))
     return partial

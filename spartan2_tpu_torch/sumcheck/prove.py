@@ -256,16 +256,23 @@ class SumcheckProverCubic:
     def prove(self, td: DeviceTranscript, eq, A, B, C, claim):
         """All rounds over (n, 8) eq, A, B, C (bound in place)
         -> (coeffs (m, 4, 8), challenges (m, 2, 8), finals, claim)."""
-        spec = self.spec
         n = eq.shape[0]
         m = n.bit_length() - 1
-        ctx, coeffs, rs = _open(td, claim, one_dev(spec, eq.device), m, 4)
-        for j in range(m):
-            part = round_partials(CUBIC, n, [eq, A, B, C], spec)
-            round_finish(CUBIC_EVALS, part, ctx, coeffs[j], rs[j], td.round + j, spec)
-            bind_dev([eq, A, B, C], n, rs[j], spec)
-            n //= 2
+        ctx, coeffs, rs = _open(td, claim, one_dev(self.spec, eq.device), m, 4)
+        self.rounds(ctx, coeffs, rs, td.round, [eq, A, B, C], n, 0, m)
         return coeffs, rs, (A[0], B[0], C[0]), _close(td, ctx, m)
+
+    def rounds(self, ctx, coeffs, rs, round0: int, vecs: list, n: int, j0: int, j1: int,
+               gather=None) -> None:
+        """Rounds j0 .. j1 - 1 over the first n rows of ``vecs`` (bound in
+        place); ``gather`` joins a round's partial sums across ranks."""
+        spec = self.spec
+        for j in range(j0, j1):
+            part = round_partials(CUBIC, n, vecs, spec)
+            round_finish(CUBIC_EVALS, part if gather is None else gather(part), ctx,
+                         coeffs[j], rs[j], round0 + j, spec)
+            bind_dev(vecs, n, rs[j], spec)
+            n //= 2
 
 
 class SumcheckProverQuad:
@@ -278,15 +285,21 @@ class SumcheckProverQuad:
         """claim = sum_x A(x) B(x) over the first 2^num_rounds rows (bound
         in place), every round kernel A's two sums, F and a bind
         -> (coeffs (m, 3, 8), challenges (m, 2, 8), (A, B) finals, claim)."""
-        spec = self.spec
-        ctx, coeffs, rs = _open(td, claim, one_dev(spec, A.device), num_rounds, 3)
-        n = 1 << num_rounds
-        for j in range(num_rounds):
-            part = round_partials(QUAD, n, [A, B], spec)
-            round_finish(QUAD_EVALS, part, ctx, coeffs[j], rs[j], td.round + j, spec)
-            bind_dev([A, B], n, rs[j], spec)
-            n //= 2
+        ctx, coeffs, rs = _open(td, claim, one_dev(self.spec, A.device), num_rounds, 3)
+        self.rounds(ctx, coeffs, rs, td.round, [A, B], 1 << num_rounds, 0, num_rounds)
         return coeffs, rs, (A[0], B[0]), _close(td, ctx, num_rounds)
+
+    def rounds(self, ctx, coeffs, rs, round0: int, vecs: list, n: int, j0: int, j1: int,
+               gather=None) -> None:
+        """Rounds j0 .. j1 - 1 over the first n rows of ``vecs`` (bound in
+        place); ``gather`` joins a round's partial sums across ranks."""
+        spec = self.spec
+        for j in range(j0, j1):
+            part = round_partials(QUAD, n, vecs, spec)
+            round_finish(QUAD_EVALS, part if gather is None else gather(part), ctx,
+                         coeffs[j], rs[j], round0 + j, spec)
+            bind_dev(vecs, n, rs[j], spec)
+            n //= 2
 
 
 def _upload_with_eq_tables(spec: FieldSpec, head: list[int], splits: list, device):
@@ -323,12 +336,27 @@ class SumcheckProverCubicEq:
               zero_check: bool = False, eff: int | None = None):
         """All m = len(taus) rounds over (2^m, 8) A, B, C (bound in place)
         -> (coeffs (m, 4, 8), challenges (m, 2, 8), finals, claim)."""
-        spec = self.spec
-        p = spec.modulus
         m = len(taus)
         n = 1 << m
         if A.shape[0] < n:
             raise ValueError("outer sum-check: needs 2^len(taus) rows")
+        plan = self.plan(taus, zero_check, A.device)
+        ctx, coeffs, rs = _open(td, claim, one_dev(self.spec, A.device), m, 4)
+        self.rounds(plan, ctx, coeffs, rs, td.round, [A, B, C], n, 0, m,
+                    self.upper_live(n, eff))
+        return coeffs, rs, (A[0], B[0], C[0]), _close(td, ctx, m)
+
+    @staticmethod
+    def upper_live(n: int, eff: int | None) -> int:
+        """Round 0's rows of the upper half below ``eff`` (all without it)."""
+        return n // 2 if eff is None else min(n // 2, max(0, eff - n // 2))
+
+    def plan(self, taus: list[int], zero_check: bool, device) -> dict:
+        """Every round's constants and eq tables, in one upload: the (m, 4,
+        8) constants, the (EL, ER) tables and rlog of each round."""
+        spec = self.spec
+        p = spec.modulus
+        m = len(taus)
         fh = m // 2
         consts = []
         for t in taus:  # kernel F's [1 - tau, 2 tau - 1, 2 - 3 tau, 1/tau or 0]
@@ -340,26 +368,36 @@ class SumcheckProverCubicEq:
                 for j in range(m)]
         uniq = sorted({k for pair in keys for k in pair if k is not None})
         consts, tables = _upload_with_eq_tables(spec, consts, [taus[a:b] for a, b in uniq],
-                                                A.device)
+                                                device)
         table = dict(zip(uniq, tables))
-        consts = consts.reshape(m, 4, 8)
-        hi_len = n // 2 if eff is None else min(n // 2, max(0, eff - n // 2))
-        ctx, coeffs, rs = _open(td, claim, one_dev(spec, A.device), m, 4)
-        for j, (el, er) in enumerate(keys):
+        return {"consts": consts.reshape(m, 4, 8), "zero_check": zero_check,
+                "fallback": [t % p == 0 for t in taus],
+                "tables": [(None if el is None else table[el], table[er],
+                            0 if el is None else m - fh) for el, er in keys]}
+
+    def rounds(self, plan: dict, ctx, coeffs, rs, round0: int, vecs: list, n: int,
+               j0: int, j1: int, hi_len: int, shard: int = 0, lw: int = 0,
+               gather=None) -> None:
+        """Rounds j0 .. j1 - 1 over the first n rows of ``vecs`` (bound in
+        place), round 0 reading the upper half's first ``hi_len`` global
+        rows.  On rank ``shard`` of 2^lw the rows are the global rows
+        shard + 2^lw i (kernel G weighs them so), and ``gather`` joins a
+        round's partial sums across the ranks."""
+        spec = self.spec
+        for j in range(j0, j1):
             half = n // 2
-            live = hi_len if j == 0 else half
-            zc, fb = zero_check and j == 0, taus[j] % p == 0
-            EL = None if el is None else table[el]
-            part = cubiceq_evals(A, B, C, half, live, EL, table[er],
-                                 0 if el is None else m - fh, zc, fb, spec)
-            round_finish(GRUEN, part, ctx, coeffs[j], rs[j], td.round + j, spec, consts[j],
-                         zc, fb)
+            # round 0's live upper rows of this rank: ceil((hi_len - shard) / 2^lw)
+            live = min(half, max(0, -(-(hi_len - shard) >> lw))) if j == 0 else half
+            zc, fb = plan["zero_check"] and j == 0, plan["fallback"][j]
+            EL, ER, rlog = plan["tables"][j]
+            part = cubiceq_evals(*vecs, half, live, EL, ER, rlog, zc, fb, spec, shard, lw)
+            round_finish(GRUEN, part if gather is None else gather(part), ctx, coeffs[j],
+                         rs[j], round0 + j, spec, plan["consts"][j], zc, fb)
             if live == half:
-                bind_dev([A, B, C], n, rs[j], spec)
+                bind_dev(vecs, n, rs[j], spec)
             else:
-                inner0_bind_dev([A, B, C], rs[j], half, live, spec)
+                inner0_bind_dev(vecs, rs[j], half, live, spec)
             n = half
-        return coeffs, rs, (A[0], B[0], C[0]), _close(td, ctx, m)
 
 
 class SpartanInnerRound0:

@@ -24,7 +24,7 @@ import torch
 from ..field.constants import FieldSpec
 from ..field.limbs import limbs_to_ints
 from ..polys.univariate import UniPoly
-from .device import CUBIC, QUAD, bind, inner0_bind, inner0_evals, round_evals_batched
+from .device import CUBIC, QUAD, bind, inner0_bind, inner0_evals, round_sums_batched
 
 
 def prove_zk_cubic(spec: FieldSpec, claims: list[int], E: torch.Tensor,
@@ -34,21 +34,11 @@ def prove_zk_cubic(spec: FieldSpec, claims: list[int], E: torch.Tensor,
     Montgomery, all bound in place.  Round polynomials come from
     from_evals_deg3([t0, claim - t0, t2, t3]).
     -> (rs, finals[k] = (A_k, B_k, C_k) at rs, E at rs)."""
-    p = spec.modulus
     A, B, C = polys
     K, n = A.shape[0], A.shape[1]
-    vecs = [E, A, B, C]
-    es = [c % p for c in claims]
     rs: list[int] = []
-    while n > 1:
-        unis = [UniPoly.from_evals_deg3(spec, [t0, (e - t0) % p, t2, t3])
-                for (t0, t2, t3), e in zip(round_evals_batched(CUBIC, n, vecs, spec),
-                                           es)]
-        r = challenge_fn(len(rs), unis)
-        rs.append(r)
-        es = [u.evaluate(r) for u in unis]
-        bind(vecs, n, r, spec)
-        n //= 2
+    zk_rounds(CUBIC, spec, claims, [E, A, B, C], n, n.bit_length() - 1, rs,
+              challenge_fn)
     vals = limbs_to_ints(torch.stack([A[:, 0], B[:, 0], C[:, 0], E[:1].expand(K, 8)],
                                      1).reshape(-1, 8), spec, mont=True)
     finals = [tuple(vals[4 * k : 4 * k + 3]) for k in range(K)]
@@ -61,25 +51,43 @@ def prove_zk_quad(spec: FieldSpec, claims: list[int], polys: tuple,
     ``polys``: (A, Z), each (K, rows, 8) Montgomery, bound in place.  Round
     polynomials come from from_evals_deg2([t0, claim - t0,
     2 claim - 3 t0 + 2 t_inf]).  -> (rs, finals[k] = (A_k, Z_k) at rs)."""
-    p = spec.modulus
     A, Z = polys
     K = A.shape[0]
-    n = 1 << num_rounds
-    es = [c % p for c in claims]
     rs: list[int] = []
-    for _ in range(num_rounds):
-        unis = [UniPoly.from_evals_deg2(spec, [t0, (e - t0) % p,
-                                               (2 * e - 3 * t0 + 2 * t_inf) % p])
-                for (t0, t_inf), e in zip(round_evals_batched(QUAD, n, [A, Z], spec),
-                                          es)]
-        r = challenge_fn(len(rs), unis)
-        rs.append(r)
-        es = [u.evaluate(r) for u in unis]
-        bind([A, Z], n, r, spec)
-        n //= 2
+    zk_rounds(QUAD, spec, claims, [A, Z], 1 << num_rounds, num_rounds, rs, challenge_fn)
     vals = limbs_to_ints(torch.stack([A[:, 0], Z[:, 0]], 1).reshape(-1, 8), spec,
                          mont=True)
     return rs, [tuple(vals[2 * k : 2 * k + 2]) for k in range(K)]
+
+
+def zk_rounds(mode: int, spec: FieldSpec, claims: list[int], vecs: list, n: int,
+              rounds: int, rs: list, challenge_fn, gather=None) -> list[int]:
+    """``rounds`` ZK rounds of kernel A's CUBIC (vecs E, A, B, C) or QUAD
+    (A, Z) mode over the first n rows of ``vecs`` (bound in place), the
+    challenges appended to ``rs`` and asked of ``challenge_fn(len(rs),
+    unipolys)`` -> the claims after them.  ``gather`` joins a round's
+    (K, sums, 8) sums across ranks, (W K, sums, 8) in rank order."""
+    p = spec.modulus
+    es = [c % p for c in claims]
+    K = len(es)
+    ns = 3 if mode == CUBIC else 2
+    for _ in range(rounds):
+        sums = round_sums_batched(mode, n, vecs, spec)
+        vals = limbs_to_ints(sums if gather is None else gather(sums), spec, mont=True)
+        per = [[sum(vals[k * ns + t :: K * ns]) % p for t in range(ns)] for k in range(K)]
+        if mode == CUBIC:
+            unis = [UniPoly.from_evals_deg3(spec, [t0, (e - t0) % p, t2, t3])
+                    for (t0, t2, t3), e in zip(per, es)]
+        else:
+            unis = [UniPoly.from_evals_deg2(spec, [t0, (e - t0) % p,
+                                                   (2 * e - 3 * t0 + 2 * t_inf) % p])
+                    for (t0, t_inf), e in zip(per, es)]
+        r = challenge_fn(len(rs), unis)
+        rs.append(r)
+        es = [u.evaluate(r) for u in unis]
+        bind(vecs, n, r, spec)
+        n //= 2
+    return es
 
 
 def inner_round0(spec: FieldSpec, claims: list[int], abc: torch.Tensor,

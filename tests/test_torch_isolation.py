@@ -14,8 +14,10 @@ def _forbidden(name: str) -> bool:
 
 
 def test_no_jax_imports_in_port_sources():
-    files = sorted((ROOT / "spartan2_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "spartan2_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_worker.py"]
     assert len(files) > 20
+    assert ROOT / "spartan2_tpu_torch" / "parallel" / "sumcheck_shard.py" in files
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -51,6 +53,10 @@ import spartan2_tpu_torch.sumcheck.nifs
 import spartan2_tpu_torch.native
 import spartan2_tpu_torch.sumcheck.prove
 import spartan2_tpu_torch.transcript.device
+# and the multi-device path's, with the mesh tests' rank functions
+import spartan2_tpu_torch.parallel.mesh
+import spartan2_tpu_torch.parallel.sumcheck_shard
+import tests.torch_mesh_worker
 from tests.torch_helpers import CubicCircuit, det
 engine, circuit = get_engine("P256HyraxEngine"), CubicCircuit()
 pk, vk = SpartanSNARK.setup(engine, circuit, width=4, device="cpu")

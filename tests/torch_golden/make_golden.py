@@ -14,6 +14,8 @@ Run from the repository root:
     JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --zk   # cubic_zk_p256.bin
     SPARTAN2_NN_HOST=1 JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --nn
     SPARTAN2_NN_HOST=1 JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --nn square
+    JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --chain      # chain_pallas.bin
+    SPARTAN2_NN_HOST=1 JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --chain-nn
 
 The committed ``cubic_p256.bin`` was recorded with the JAX package of
 commit 4cf6d4bc4a04b6b518ace38bd3ac5e0ff6d2cd09, and ``cubic_zk_p256.bin``
@@ -33,6 +35,16 @@ recordings (each beside another) died after 13-53 minutes of XLA:CPU
 compiles with LLVM "Cannot allocate memory" errors.  The JAX package
 keeps the host path to cross-test the device path; the port follows the
 device path and proves to these bytes.
+
+The two Pallas chain files hold tests/test_mesh.py's configurations,
+which the JAX package proves on its 8-device CPU mesh and holds equal to
+its single-device proofs: ``chain_pallas.bin`` is SpartanSNARK on
+``ChainCircuit`` (x -> x^2 a thousand times from x = 3, the last value
+public; PallasHyraxEngine, width 4), ``nn_chain_pallas.bin`` is
+NeutronNovaZkSNARK on two ``ChainStep`` circuits (62 squarings from
+x = 3 and x = 5) with ``Core`` (y = 6 * 7).  They are recorded here from
+the JAX package's single-device provers; the port's mesh tests
+(tests/test_torch_mesh.py) prove to these bytes on W ranks.
 
 File layout (all integers u64 little-endian):
     b"SP2GOLD1", width, prep_seed, prove_seed,
@@ -54,6 +66,11 @@ PROVE_SEED = 2
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "cubic_p256.bin")
 OUT_ZK = os.path.join(HERE, "cubic_zk_p256.bin")
+CHAIN_OUT = os.path.join(HERE, "chain_pallas.bin")
+NN_CHAIN_OUT = os.path.join(HERE, "nn_chain_pallas.bin")
+CHAIN_N = 1000  # ChainCircuit's squarings (tests/test_mesh.py)
+CHAIN_STEP_N = 62  # ChainStep's squarings
+CHAIN_STEP_X0 = [3, 5]
 NN_STEPS = {"square": [2, 5, 11], "precommitted": [2, 3, 5, 7, 11, 13, 17]}
 
 
@@ -174,8 +191,100 @@ def jax_nn_prove(name: str) -> tuple[bytes, bytes, bytes]:
     return keys, prep_b, serde.neutronnova_proof_to_bytes(proof, engine)
 
 
+def jax_chain_circuits():
+    """tests/test_mesh.py's ChainCircuit, ChainStep and Core on the JAX
+    frontend -> (ChainCircuit, ChainStep class, Core)."""
+    from spartan2_tpu.frontend.constraint_system import Num
+    from spartan2_tpu.provider.engines import get_engine
+
+    p = get_engine("PallasHyraxEngine").scalar.modulus
+
+    class Chain:
+        def __init__(self, x0, n):
+            self.x0, self.n = x0, n
+
+        def public_values(self):
+            x = self.x0
+            for _ in range(self.n):
+                x = x * x % p
+            return [x]
+
+        def shared(self, cs):
+            return []
+
+        def precommitted(self, cs, shared):
+            return []
+
+        def num_challenges(self):
+            return 0
+
+        def synthesize(self, cs, shared, precommitted, challenges):
+            x = Num.alloc(cs, self.x0)
+            for _ in range(self.n):
+                x = x.square(cs)
+            x.inputize(cs)
+
+    class Core:
+        def public_values(self):
+            return [42]
+
+        def shared(self, cs):
+            return []
+
+        def precommitted(self, cs, shared):
+            return []
+
+        def num_challenges(self):
+            return 0
+
+        def synthesize(self, cs, shared, precommitted, challenges):
+            a = Num.alloc(cs, 6)
+            b = Num.alloc(cs, 7)
+            a.mul(cs, b).inputize(cs)
+
+    return Chain(3, CHAIN_N), (lambda x0: Chain(x0, CHAIN_STEP_N)), Core()
+
+
+def jax_chain_prove(nn: bool) -> tuple[bytes, bytes, bytes]:
+    """The JAX package's single-device SpartanSNARK on ChainCircuit, or
+    (``nn``) NeutronNovaZkSNARK on the two ChainSteps and Core, from the
+    fixed seeds."""
+    from spartan2_tpu.provider.engines import get_engine
+    from spartan2_tpu.utils import serde
+
+    engine = get_engine("PallasHyraxEngine")
+    chain, step, core = jax_chain_circuits()
+    if nn:
+        from spartan2_tpu.snark.neutronnova import NeutronNovaZkSNARK as snark
+
+        steps = [step(x0) for x0 in CHAIN_STEP_X0]
+        pk, _ = snark.setup(engine, steps[0], core, len(steps), width=WIDTH)
+        prep = snark.prep_prove(pk, steps, core, rng=det(PREP_SEED))
+        keys = serde.neutronnova_keys_to_bytes(pk, len(steps))
+        prep_b = serde.neutronnova_prep_to_bytes(prep, engine)
+        proof, _ = snark.prove(pk, steps, core, prep, rng=det(PROVE_SEED))
+        return keys, prep_b, serde.neutronnova_proof_to_bytes(proof, engine)
+    from spartan2_tpu.snark.spartan import SpartanSNARK as snark
+
+    pk, _ = snark.setup(engine, chain, width=WIDTH)
+    prep = snark.prep_prove(pk, chain, rng=det(PREP_SEED))
+    keys = serde.spartan_keys_to_bytes(pk)
+    prep_b = serde.spartan_prep_to_bytes(prep, engine)
+    proof, _ = snark.prove(pk, chain, prep, rng=det(PROVE_SEED))
+    return keys, prep_b, serde.spartan_proof_to_bytes(proof, engine)
+
+
 def main() -> int:
     args = sys.argv[1:]
+    for flag, out, nn in (("--chain", CHAIN_OUT, False),
+                          ("--chain-nn", NN_CHAIN_OUT, True)):
+        if flag in args:
+            t0 = time.time()
+            keys, prep, proof = jax_chain_prove(nn)
+            write_golden(out, keys, prep, proof)
+            print(f"wrote {out}: keys {len(keys)} B, prep {len(prep)} B, "
+                  f"proof {len(proof)} B in {time.time() - t0:.1f} s")
+            return 0
     if "--nn" in args:
         rest = args[args.index("--nn") + 1:]
         for name in rest[:1] or list(NN_STEPS):

@@ -145,3 +145,38 @@ def taus_with_0_and_1(p: int, m: int, seed: int) -> list[int]:
     taus = rand_ints(p, m, seed)
     taus[0], taus[1] = 0, 1
     return taus
+
+
+class ChainCircuit:
+    """x -> x^2, n times from x0, the last value public (tests/test_mesh.py's
+    ChainCircuit with n = 1000 and x0 = 3, and its ChainStep with n = 62),
+    written against the port's frontend."""
+
+    def __init__(self, x0: int = 3, n: int = 1000, modulus: int | None = None):
+        self.x0, self.n = x0, n
+        if modulus is None:
+            from spartan2_tpu_torch.provider.engines import get_engine
+
+            modulus = get_engine("PallasHyraxEngine").scalar.modulus
+        self.modulus = modulus
+
+    def public_values(self):
+        x = self.x0
+        for _ in range(self.n):
+            x = x * x % self.modulus
+        return [x]
+
+    def shared(self, cs):
+        return []
+
+    def precommitted(self, cs, shared):
+        return []
+
+    def num_challenges(self):
+        return 0
+
+    def synthesize(self, cs, shared, precommitted, challenges):
+        x = Num.alloc(cs, self.x0)
+        for _ in range(self.n):
+            x = x.square(cs)
+        x.inputize(cs)
