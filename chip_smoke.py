@@ -3,7 +3,13 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the nine CUDA sources
-   from spartan2_tpu_torch/csrc/ (one nvcc per source, in parallel).
+   from spartan2_tpu_torch/csrc/ (one nvcc per source, in parallel) and
+   the host C libraries (native/keccak.c, native/ec_host.c, with cc),
+   printing both build times; holds the host C curve on this machine's
+   host against its Python versions: msm against msm_plain at 17 and
+   2048 points, scalar_mul against scalar_mul_plain, on P-256 and
+   Pallas.  Every host MSM and scalar multiplication of the proves and
+   verifies below runs in C.
 2. Drives SpartanSNARK: setup, prep_prove, a warm-up prove and two timed
    proves on SHA-256 over a 1 KiB preimage (P256HyraxEngine, Hyrax width
    2048, is_small=True), then verifies the proof, checks that a tampered
@@ -24,7 +30,9 @@
    batched Az/Bz/Cz and the small grid), a warm-up prove and three timed
    proves, verify, the proof through serde and back, a tampered step
    public value rejected, one traced and one profiled prove; its counts
-   are set to 0 before its setup and read after its verify.
+   are set to 0 before its setup and read after its verify.  The traced
+   ZK and NN proves print their verifier-circuit commits (vc_commit:
+   calls and host ms).
 5. Proves the cubic circuit on the card with both Spartan SNARKs, and
    the two NeutronNova test configurations, from the JAX package's
    recorded keys, prep state and seeds (tests/torch_golden/): each proof
@@ -50,6 +58,16 @@
    32-bit multiply-adds and the Keccak logic operations this run's data
    needs.  The comb, MSM and Hyrax-bind kernels are also held against
    their plain versions on the Pallas curve (a = 0).
+   (f) The curve phase, the last four device functions' own path (no
+   prove calls them): on P-256 and Pallas, with the counts set to 0
+   first and read after, msm_binary at 2048 points, at 1000 (padded) and
+   with no bit set; msm_points_per_lane over 2048 lanes at nbits 256
+   (zero scalars, 1, q - 1, and q and q + 2, which meet the mixed
+   addition's identity and doubling cases) and at nbits 64;
+   scalar_mul_host_base with k in {0, 1, q - 1, random} over 2048
+   points; mle_evaluate_device at m = 20 and m = 1.  Each result must
+   equal its plain version on the card exactly, and the host's (the C
+   curve, mle_evaluate_host on the pulled table).
 8. The mesh phase (spartan2_tpu_torch/parallel/): W ranks spawned on the
    one card in a gloo group (FileStore rendezvous in a temporary
    directory), every kernel built here first.  (m1) W = 2 ranks each set
@@ -98,6 +116,7 @@ IMAD_PER_MONT_MUL = 256
 KECCAK_F_OPS = 24 * 180
 MONT_MULS_PER_ADD = 16  # complete Jacobian addition (csrc/comb.cu pt_add)
 MONT_MULS_PER_DBL = 10
+MONT_MULS_PER_MADD = 11  # complete mixed addition, affine second point (curve.cuh)
 PROOF_BYTES = 94324  # BENCH_r05.json proof_bytes (same wire format)
 
 
@@ -366,8 +385,18 @@ def compare_kernels(pk, prep, proof, launches: dict):
     r_y = [random.Random(40 + j).randrange(F.modulus) for j in range(m)]
     r_x = [random.Random(80 + j).randrange(F.modulus) for j in range(m)]
     fnnz = S.A.nnz + S.B.nnz + S.C.nnz
+
+    def shape_eval_plain():
+        Tx = eq_table_plain(eq_factors(r_x, F, dev), F)
+        Ty = eq_table_plain(eq_factors(r_y, F, dev), F)[: S.num_cols]
+        M = spmv_plain([S.dev[k] for k in "ABC"], Ty, F)
+        return torch.cat([round_evals_plain(DOT, S.num_cons, [Tx, M[k]], F)
+                          for k in range(3)])
+
+    pms = check("evaluate_at (shape_eval)", list(S.evaluate_at(r_x, r_y)),
+                shape_eval_plain)
     record_detail("evaluate_at (shape_eval)",
-                  cuda_ms(lambda: S.evaluate_at(r_x, r_y), 3), None,
+                  cuda_ms(lambda: S.evaluate_at(r_x, r_y), 3), pms,
                   2 * n * 32 + fnnz * 36 + 3 * n * 32, 2 * n * m + fnnz + 3 * n)
 
     # kernel 3: the PCS comb rows-MSM over [LZ, d_vec] (full width)
@@ -628,6 +657,15 @@ def spans_by_name(spans) -> dict:
     return {k: [c, round(t, 3)] for k, (c, t) in agg.items()}
 
 
+def print_vc_commit(path: str, spans) -> None:
+    """The traced prove's verifier-circuit row commits (host, C MSMs)."""
+    calls, ms = spans_by_name(spans).get("vc_commit", [0, 0.0])
+    if calls == 0:
+        raise RuntimeError(f"{path}: the traced prove made no vc_commit")
+    print(f"{path} traced prove: vc_commit {calls} calls, {ms} ms in all, "
+          f"{ms / calls:.4f} ms a call", flush=True)
+
+
 def profiled_device_ms(fn) -> tuple[float, float, list]:
     """(wall s, device ms, top kernels) of one run of fn under torch.profiler."""
     act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -817,6 +855,7 @@ def run_spartan_zk(engine, S, circuit, dev, kernels):
     print("ZK setup spans ms: " + json.dumps(spans_by_name(spans_setup)), flush=True)
     print("ZK prove (traced) spans [calls, ms]: " + json.dumps(spans_by_name(spans)),
           flush=True)
+    print_vc_commit("ZK", spans)
     print("ZK verify spans [calls, ms]: " + json.dumps(spans_by_name(spans_verify)),
           flush=True)
     print(f"ZK launches per prove: {json.dumps(per_prove)}; ZK path: "
@@ -972,6 +1011,7 @@ def run_neutronnova(engine, dev, kernels):
     print("NN prep spans ms: " + json.dumps(spans_by_name(spans_prep)), flush=True)
     print("NN prove (traced) spans [calls, ms]: " + json.dumps(spans_by_name(spans)),
           flush=True)
+    print_vc_commit("NN", spans)
     print("NN verify spans [calls, ms]: " + json.dumps(spans_by_name(spans_verify)),
           flush=True)
     print(f"NN launches per timed prove: {json.dumps(per_prove)}; NN path: "
@@ -1532,6 +1572,262 @@ def check_pallas(dev) -> list:
     return detail
 
 
+def build_host_c() -> float:
+    """Build (or load) the host C libraries, Keccak and curve; -> seconds."""
+    from spartan2_tpu_torch.ec.curve import _native_ec
+    from spartan2_tpu_torch.transcript.keccak import keccak256
+
+    t0 = time.perf_counter()
+    _native_ec()
+    keccak256(b"")
+    return time.perf_counter() - t0
+
+
+HOST_CURVE_N = (17, 2048)  # a verifier-circuit row commit (16 + blind); a width
+
+
+def _host_ms(fn, reps: int) -> tuple:
+    """(result, mean host milliseconds over reps runs)."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        res = fn()
+    return res, (time.perf_counter() - t0) * 1e3 / reps
+
+
+def check_host_curve() -> list:
+    """The host curve in C (native/ec_host.c) against its Python versions
+    on this machine's host: msm against msm_plain at 17 and 2048 points,
+    scalar_mul against scalar_mul_plain, on P-256 and Pallas -> detail
+    records (host ms)."""
+    from spartan2_tpu_torch.ec.curve import get_curve
+
+    detail = []
+    rng = random.Random(31)
+    for name in ("p256", "pallas"):
+        c = get_curve(name)
+        q = c.scalar.modulus
+        gens = c.from_label(b"chip_smoke host curve", max(HOST_CURVE_N))
+        for n in HOST_CURVE_N:
+            sc = [rng.randrange(q) for _ in range(n)]
+            sc[0], pts = 0, list(gens[:n])
+            pts[n // 2] = None
+            got, ms = _host_ms(lambda: c.msm(sc, pts), 20)
+            want, pms = _host_ms(lambda: c.msm_plain(sc, pts), 1 if n > 100 else 3)
+            if got != want:
+                raise RuntimeError(f"host C msm on {name} at n = {n} differs from msm_plain")
+            print(f"equal to plain: host C msm on {name}, n = {n}", flush=True)
+            detail.append({"name": f"host C msm {name} n={n}", "host_ms": ms,
+                           "plain_host_ms": pms})
+        ks = [0, 1, q - 1] + [rng.randrange(q) for _ in range(5)]
+        for pt in (c.generator, gens[1], None):
+            for k in ks:
+                if c.scalar_mul(k, pt) != c.scalar_mul_plain(k, pt):
+                    raise RuntimeError(f"host C scalar_mul on {name} differs from "
+                                       "scalar_mul_plain")
+        k = ks[-1]
+        _, ms = _host_ms(lambda: c.scalar_mul(k, gens[1]), 50)
+        _, pms = _host_ms(lambda: c.scalar_mul_plain(k, gens[1]), 10)
+        print(f"equal to plain: host C scalar_mul on {name} ({len(ks)} scalars x 3 "
+              "points)", flush=True)
+        detail.append({"name": f"host C scalar_mul {name}", "host_ms": ms,
+                       "plain_host_ms": pms})
+    return detail
+
+
+# ---------------------------------------------------------------------------
+# (f) the curve phase: the last four device functions
+# ---------------------------------------------------------------------------
+
+CURVE_N = 2048  # lanes: a Hyrax width
+CURVE_N_PAD = 1000  # a masked sum padded with the identity
+CURVE_M = 20  # variables of the MLE table: the main path's 2^20
+CURVE_PATH = ("wrapper calls of phase (f), the curve functions' own path (no "
+              "prove calls them): P-256 and Pallas")
+CURVE_ENTRIES = {"msm_binary": "sp2_msm_binary", "msm_points_per_lane": "sp2_msm_per_lane",
+                 "scalar_mul_host_base": "sp2_scalar_mul_base"}
+CURVE_REPLACES = {"msm_binary": "spartan2_tpu/ec/device.py:445",
+                  "msm_points_per_lane": "spartan2_tpu/ec/device.py:468",
+                  "scalar_mul_host_base": "spartan2_tpu/ec/device.py:474",
+                  "mle_evaluate_device": "spartan2_tpu/polys/multilinear.py:81"}
+
+
+def _curve_inputs(name: str, gen: torch.Generator, dev) -> dict:
+    """Seeded inputs of phase (f) on one curve: 2048 affine points, bits,
+    scalars (full width with zeros, 1, q - 1 and the exceptional q and
+    q + 2; below 2^64 with zeros), the host scalars and an MLE table."""
+    from spartan2_tpu_torch.ec.curve import get_curve
+    from spartan2_tpu_torch.field import ops
+    from spartan2_tpu_torch.field.limbs import to_device
+
+    c = get_curve(name)
+    q, F = c.scalar.modulus, c.scalar
+    pts = c.from_label(b"chip_smoke curve phase", CURVE_N)
+    qx = to_device([p[0] for p in pts], c.base, dev, mont=True)
+    qy = to_device([p[1] for p in pts], c.base, dev, mont=True)
+    bits = torch.randint(0, 2, (CURVE_N,), generator=gen, dtype=torch.int32)
+    rng = random.Random(name)
+    full = [rng.randrange(q) for _ in range(CURVE_N)]
+    full[:5] = [0, 1, q - 1, q, q + 2]  # q, q + 2: the mixed add's exceptional cases
+    full[5::37] = [0] * len(full[5::37])
+    small = [rng.randrange(1 << 64) for _ in range(CURVE_N)]
+    small[::17] = [0] * len(small[::17])
+
+    def raw(vals):  # 256-bit values as they are (q and q + 2 not reduced)
+        buf = b"".join(v.to_bytes(32, "little") for v in vals)
+        return torch.frombuffer(bytearray(buf), dtype=torch.int32).reshape(-1, 8).to(dev)
+
+    table = ops.to_mont(rand_field(1 << CURVE_M, F, gen, dev), F)
+    return {"curve": c, "pts": pts, "qx": qx, "qy": qy, "bits": bits.to(dev),
+            "full": full, "small": small, "sc_full": raw(full), "sc_small": raw(small),
+            "ks": [0, 1, q - 1, rng.randrange(q)],
+            "table": table,
+            "table1": to_device([rng.randrange(q) for _ in range(2)], F, dev, mont=True),
+            "r": to_device([rng.randrange(q) for _ in range(CURVE_M)], F, dev, mont=True)}
+
+
+def _drive_curve_path(inp: dict) -> dict:
+    """Every curve function once through its wrapper, as a caller would."""
+    from spartan2_tpu_torch.ec.msm import (msm_binary, msm_points_per_lane,
+                                           scalar_mul_host_base)
+    from spartan2_tpu_torch.polys.multilinear import mle_evaluate_device
+
+    c, qx, qy, bits = inp["curve"], inp["qx"], inp["qy"], inp["bits"]
+    n = CURVE_N_PAD
+    return {
+        "binary": msm_binary(bits, qx, qy, c),
+        "binary_pad": msm_binary(bits[:n], qx[:n].contiguous(), qy[:n].contiguous(), c),
+        "binary_zero": msm_binary(torch.zeros_like(bits), qx, qy, c),
+        "lane": msm_points_per_lane(inp["sc_full"], qx, qy, c),
+        "lane64": msm_points_per_lane(inp["sc_small"], qx, qy, c, 64),
+        "base": [scalar_mul_host_base(k, qx, qy, c) for k in inp["ks"]],
+        "mle": mle_evaluate_device(inp["table"], inp["r"], c.scalar),
+        "mle1": mle_evaluate_device(inp["table1"], inp["r"][:1].contiguous(), c.scalar),
+    }
+
+
+def _hold_curve_path(name: str, inp: dict, got: dict) -> dict:
+    """Each result of the curve path against its plain version on the card
+    (exact), and against the host (C curve, Python MLE) -> plain ms."""
+    from spartan2_tpu_torch.ec.comb import to_affine
+    from spartan2_tpu_torch.ec.msm import (msm_binary_plain, msm_points_per_lane_plain,
+                                           scalar_mul_host_base_plain)
+    from spartan2_tpu_torch.field.limbs import limbs_to_ints
+    from spartan2_tpu_torch.polys.multilinear import (mle_evaluate_device_plain,
+                                                      mle_evaluate_host)
+
+    c, qx, qy, bits = inp["curve"], inp["qx"], inp["qy"], inp["bits"]
+    F, n, pts = c.scalar, CURVE_N_PAD, inp["pts"]
+    pms = {}
+    want, pms["msm_binary"] = once_ms(lambda: msm_binary_plain(bits, qx, qy, c))
+    same_or_raise(f"msm_binary on {name}, n = {CURVE_N}", got["binary"], want, F)
+    want = msm_binary_plain(bits[:n], qx[:n], qy[:n], c)
+    same_or_raise(f"msm_binary on {name}, n = {n} (padded)", got["binary_pad"], want, F)
+    want = msm_binary_plain(torch.zeros_like(bits), qx, qy, c)
+    same_or_raise(f"msm_binary on {name}, no bit set", got["binary_zero"], want, F)
+    hb = bits.tolist()
+    host = [c.msm(hb, pts), c.msm(hb[:n], pts[:n]), None]
+    if to_affine(torch.stack([got["binary"], got["binary_pad"], got["binary_zero"]]),
+                 c) != host:
+        raise RuntimeError(f"msm_binary on {name} differs from the host C msm")
+    want, pms["msm_points_per_lane"] = once_ms(
+        lambda: msm_points_per_lane_plain(inp["sc_full"], qx, qy, c))
+    same_or_raise(f"msm_points_per_lane on {name}, nbits 256", got["lane"], want, F)
+    want = msm_points_per_lane_plain(inp["sc_small"], qx, qy, c, 64)
+    same_or_raise(f"msm_points_per_lane on {name}, nbits 64", got["lane64"], want, F)
+    for j in (0, 1, 2, 3, 4, 5, CURVE_N - 1):
+        for key, vals in (("lane", inp["full"]), ("lane64", inp["small"])):
+            if to_affine(got[key][j : j + 1], c)[0] != c.scalar_mul(vals[j], pts[j]):
+                raise RuntimeError(f"msm_points_per_lane on {name}: lane {j} differs "
+                                   "from the host C scalar_mul")
+    for k, res in zip(inp["ks"], got["base"]):
+        want, ms = once_ms(lambda: scalar_mul_host_base_plain(k, qx, qy, c))
+        if k == inp["ks"][-1]:
+            pms["scalar_mul_host_base"] = ms
+        same_or_raise(f"scalar_mul_host_base on {name}, k of {k.bit_length()} bits",
+                      res, want, F)
+        if to_affine(res[:3], c) != [c.scalar_mul(k, p) for p in pts[:3]]:
+            raise RuntimeError(f"scalar_mul_host_base on {name} differs from the host")
+    want, pms["mle_evaluate_device"] = once_ms(
+        lambda: mle_evaluate_device_plain(inp["table"], inp["r"], F))
+    same_or_raise(f"mle_evaluate_device on {name}'s scalar field, m = {CURVE_M}",
+                  got["mle"], want, F)
+    r1 = inp["r"][:1]
+    same_or_raise(f"mle_evaluate_device on {name}'s scalar field, m = 1", got["mle1"],
+                  mle_evaluate_device_plain(inp["table1"], r1, F), F)
+    r_host = limbs_to_ints(inp["r"], F, mont=True)
+    for key, tab, r in (("mle", "table", r_host), ("mle1", "table1", r_host[:1])):
+        host_val = mle_evaluate_host(F, limbs_to_ints(inp[tab], F, mont=True), r)
+        if limbs_to_ints(got[key], F, mont=True) != [host_val]:
+            raise RuntimeError(f"{key} on {name} differs from mle_evaluate_host")
+    print(f"curve phase on {name}: every result equals the host's", flush=True)
+    return pms
+
+
+def check_curve(dev) -> tuple:
+    """(f) msm_binary, msm_points_per_lane, scalar_mul_host_base and
+    mle_evaluate_device on P-256 and Pallas: the counts set to 0, each
+    function driven through its wrapper, the counts read; then every
+    result against its plain version on the card and against the host
+    -> (kernel records, detail records)."""
+    from spartan2_tpu_torch.ec.msm import (MSM, msm_binary, msm_points_per_lane,
+                                           scalar_mul_host_base)
+    from spartan2_tpu_torch.polys.multilinear import mle_evaluate_device
+    from spartan2_tpu_torch.sumcheck.device import SUMCHECK
+
+    gen = torch.Generator().manual_seed(41)
+    inputs = {name: _curve_inputs(name, gen, dev) for name in ("p256", "pallas")}
+    torch.cuda.synchronize()
+    for k in (MSM, SUMCHECK):
+        k.reset()
+    got = {name: _drive_curve_path(inp) for name, inp in inputs.items()}
+    torch.cuda.synchronize()
+    launches = {fn: MSM.entry_launches.get(e, 0) for fn, e in CURVE_ENTRIES.items()}
+    launches["mle_evaluate_device"] = SUMCHECK.entry_launches.get("sp2_bind_dev", 0)
+    print(f"curve phase launches: {json.dumps(launches)}", flush=True)
+    for fn, count in launches.items():
+        if count <= 0:
+            raise RuntimeError(f"{fn} launched no kernel in the curve phase")
+    pms = {name: _hold_curve_path(name, inputs[name], got[name]) for name in inputs}
+
+    out, detail = [], []
+    for name, inp in inputs.items():
+        c, qx, qy, bits = inp["curve"], inp["qx"], inp["qy"], inp["bits"]
+        F = c.scalar
+        sel = int((bits == 1).sum())
+        k = inp["ks"][-1]
+        runs = {
+            "msm_binary": (
+                lambda: msm_binary(bits, qx, qy, c),
+                CURVE_N * 4 + sel * 64 + 96, max(sel - 1, 0) * MONT_MULS_PER_ADD),
+            "msm_points_per_lane": (
+                lambda: msm_points_per_lane(inp["sc_full"], qx, qy, c),
+                CURVE_N * (32 + 64 + 96),
+                sum(max(v.bit_length() - 1, 0) * MONT_MULS_PER_DBL
+                    + max(bin(v).count("1") - 1, 0) * MONT_MULS_PER_MADD
+                    for v in inp["full"])),
+            "scalar_mul_host_base": (
+                lambda: scalar_mul_host_base(k, qx, qy, c),
+                CURVE_N * (64 + 96) + 32,
+                CURVE_N * ((k.bit_length() - 1) * MONT_MULS_PER_DBL
+                           + (bin(k).count("1") - 1) * MONT_MULS_PER_MADD)),
+            "mle_evaluate_device": (
+                lambda: mle_evaluate_device(inp["table"], inp["r"], F),
+                (1 << CURVE_M) * 32 + CURVE_M * 32 + 32, (1 << CURVE_M) - 1),
+        }
+        for fn, (run, nbytes, muls) in runs.items():
+            ms = cuda_ms(run, 3 if fn in ("msm_points_per_lane",
+                                          "scalar_mul_host_base") else 10)
+            if name == "p256":
+                source = ("spartan2_tpu_torch/csrc/sumcheck.cu"
+                          if fn == "mle_evaluate_device" else "spartan2_tpu_torch/csrc/msm.cu")
+                out.append(kernel_record(fn, CURVE_REPLACES[fn], launches[fn], CURVE_PATH, ms,
+                                         pms[name][fn], nbytes, muls, source))
+            else:
+                detail.append(detail_record(f"Pallas {fn} (phase (f) shape)", ms,
+                                            pms[name][fn], nbytes, muls))
+    return out, detail
+
+
 # ---------------------------------------------------------------------------
 # the mesh phase: W ranks on the one card, a gloo group
 # ---------------------------------------------------------------------------
@@ -1933,6 +2229,9 @@ def main() -> int:
     spartan_kernels = kernels[:-1]  # all but NIFS
     print(f"build: {build_all(kernels):.1f} s (nvcc, {len(kernels)} sources in "
           "parallel)", flush=True)
+    print(f"host C build: {build_host_c():.2f} s (cc: native/keccak.c, "
+          "native/ec_host.c)", flush=True)
+    h_detail = check_host_curve()
     for k in kernels:
         log = k.lib_path.parent / f"{k.name}.log"
         regs = [ln.strip() for ln in log.read_text().splitlines()
@@ -1955,11 +2254,13 @@ def main() -> int:
     zk_out, zk_detail = compare_zk_kernels(pk.S, zk_proof, proof, zk_launches)
     nn_out, nn_detail = compare_nn_kernels(nn_pk, nn_prep, nn_proof, nn_launches)
     p_detail = check_pallas(dev)
+    f_out, f_detail = check_curve(dev)
     m_out, m_detail = run_mesh(pk, prep, nn_pk, {"spartan": blob, "nn": nn_blob})
     print("kernel details (ms, bound_ms): " + json.dumps(
-        detail + zk_detail + nn_detail + t_detail + s_detail + p_detail + m_detail),
-        flush=True)
-    print(json.dumps({"kernels": out + zk_out + nn_out + t_out + s_out + m_out}), flush=True)
+        detail + zk_detail + nn_detail + t_detail + s_detail + p_detail + f_detail
+        + m_detail + h_detail), flush=True)
+    print(json.dumps({"kernels": out + zk_out + nn_out + t_out + s_out + f_out + m_out}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

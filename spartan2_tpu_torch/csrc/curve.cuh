@@ -96,6 +96,37 @@ __device__ Pt pt_add(const Pt& P, const Pt& Q, const Curve& C) {
   return R;
 }
 
+// P + (qx, qy) with the second point affine (Z = 1, never the identity),
+// complete (madd with the exceptional cases branched): the per-lane
+// double-and-add's step (msm.cu).
+__device__ Pt pt_add_mixed(const Pt& P, const Fe& qx, const Fe& qy, const Curve& C) {
+  const Field& F = C.F;
+  if (fe_is_zero(P.Z)) {
+    Pt R;
+    R.X = qx;
+    R.Y = qy;
+    R.Z = fe_one(F);
+    return R;
+  }
+  Fe Z1Z1 = fe_mul(P.Z, P.Z, F);
+  Fe U2 = fe_mul(qx, Z1Z1, F);
+  Fe S2 = fe_mul(qy, fe_mul(P.Z, Z1Z1, F), F);
+  Fe H = fe_sub(U2, P.X, F);
+  Fe Rr = fe_sub(S2, P.Y, F);
+  if (fe_is_zero(H)) {
+    if (fe_is_zero(Rr)) return pt_dbl(P, C);
+    return pt_inf(F);
+  }
+  Fe HH = fe_mul(H, H, F);
+  Fe HHH = fe_mul(H, HH, F);
+  Fe V = fe_mul(P.X, HH, F);
+  Pt R;
+  R.X = fe_sub(fe_sub(fe_mul(Rr, Rr, F), HHH, F), fe_double(V, F), F);
+  R.Y = fe_sub(fe_mul(Rr, fe_sub(V, R.X, F), F), fe_mul(P.Y, HHH, F), F);
+  R.Z = fe_mul(P.Z, H, F);
+  return R;
+}
+
 // Threads per block of a point sum (the plain versions repeat its order).
 constexpr int SUM_NT = 128;
 

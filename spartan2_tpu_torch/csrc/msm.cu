@@ -26,6 +26,30 @@
 // Bound: point additions (about 16 Montgomery products each), not bytes;
 // the Horner ladder (4 doublings and an add per window, one thread per
 // row) is the serial tail.
+//
+// Entries sp2_msm_binary, sp2_msm_per_lane and sp2_scalar_mul_base: the
+// JAX package's DeviceCurve.msm_binary (ec/device.py:445, _msm_binary_jit
+// :436, fastkey "msm_binary"), msm_points_per_lane (:468, _per_lane_jit
+// :451, fastkey "msm_lane") and scalar_mul_host_base (:474).  Points are
+// affine Montgomery (qx, qy: (n, 8) each, never the identity); outputs
+// Jacobian Montgomery.  Every addition is complete: JAX's per-lane ladder
+// and binary tree use incomplete adds, sound only on honest inputs.
+//   sp2_msm_binary       sum_i [bit_i == 1] Q_i.  msm_binary_kernel: block
+//                        b sums lanes [256 b, 256 b + 256) by thread t
+//                        adding lanes t and t + 128 if selected, then the
+//                        block's halving tree -> partial[b]; pt_sum_kernel:
+//                        one block sums the partials the same way.  Lanes
+//                        past n are the identity: JAX's padding to a power
+//                        of two.  Bound: the additions of the selected
+//                        points, a tree of depth 9 + log2(blocks).
+//   sp2_msm_per_lane     out_i = s_i Q_i (s_i canonical, below 2^nbits):
+//                        one thread per lane, left-to-right double-and-add
+//                        over nbits bits with a complete mixed add; no
+//                        reduction across lanes.  Bound: nbits doublings
+//                        and an addition per set bit in every lane.
+//   sp2_scalar_mul_base  out_i = k Q_i for one host scalar k, passed by
+//                        value: per_lane_kernel with k broadcast and
+//                        nbits = bit length of k.
 
 #include "curve.cuh"
 
@@ -73,6 +97,90 @@ __global__ void msm_horner_kernel(int rows, int n_win, const uint32_t* sums,
     acc = pt_add(acc, pt_load(sums, (size_t)r * n_win + k), C);
   }
   pt_store(out, r, acc);
+}
+
+constexpr int BIN_LANES = 2 * SUM_NT;  // lanes a block of msm_binary sums
+
+__global__ void msm_binary_kernel(int n, const int* bits, const uint32_t* qx,
+                                  const uint32_t* qy, uint32_t* partial, Curve C) {
+  const int base = blockIdx.x * BIN_LANES;
+  const int end = min(n, base + BIN_LANES);
+  Pt acc = pt_inf(C.F);
+  for (int i = base + threadIdx.x; i < end; i += SUM_NT) {
+    if (bits[i] != 1) continue;
+    Pt Q;
+    Q.X = fe_load(qx, i);
+    Q.Y = fe_load(qy, i);
+    Q.Z = fe_one(C.F);
+    acc = pt_add(acc, Q, C);
+  }
+  acc = block_pt_sum(acc, C);
+  if (threadIdx.x == 0) pt_store(partial, blockIdx.x, acc);
+}
+
+// One block: the sum of n Jacobian points, thread t adding points t, t +
+// 128, ... in order, then the halving tree -> out[0].
+__global__ void pt_sum_kernel(int n, const uint32_t* pts, uint32_t* out, Curve C) {
+  Pt acc = pt_inf(C.F);
+  for (int i = threadIdx.x; i < n; i += SUM_NT) acc = pt_add(acc, pt_load(pts, i), C);
+  acc = block_pt_sum(acc, C);
+  if (threadIdx.x == 0) pt_store(out, 0, acc);
+}
+
+__global__ void per_lane_kernel(int n, int nbits, const uint32_t* scalars, Fe k,
+                                const uint32_t* qx, const uint32_t* qy, uint32_t* out,
+                                Curve C) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Fe s = scalars != nullptr ? fe_load(scalars, i) : k;
+  const Fe X = fe_load(qx, i);
+  const Fe Y = fe_load(qy, i);
+  Pt acc = pt_inf(C.F);
+  for (int b = nbits - 1; b >= 0; --b) {
+    acc = pt_dbl(acc, C);
+    if ((s.v[b >> 5] >> (b & 31)) & 1) acc = pt_add_mixed(acc, X, Y, C);
+  }
+  pt_store(out, i, acc);
+}
+
+extern "C" int sp2_msm_binary(int n, const void* bits, const void* qx, const void* qy,
+                              void* partial, void* out, const uint32_t* curve_words,
+                              void* stream) {
+  Curve C = curve_from_words(curve_words);
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = (n + BIN_LANES - 1) / BIN_LANES;
+  msm_binary_kernel<<<blocks, SUM_NT, 0, s>>>(n, (const int*)bits, (const uint32_t*)qx,
+                                              (const uint32_t*)qy, (uint32_t*)partial, C);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  pt_sum_kernel<<<1, SUM_NT, 0, s>>>(blocks, (const uint32_t*)partial, (uint32_t*)out, C);
+  return (int)cudaGetLastError();
+}
+
+static int launch_per_lane(int n, int nbits, const uint32_t* scalars, Fe k,
+                           const void* qx, const void* qy, void* out,
+                           const uint32_t* curve_words, void* stream) {
+  Curve C = curve_from_words(curve_words);
+  if (n < 1 || nbits < 0 || nbits > 256) return (int)cudaErrorInvalidValue;
+  const int nt = 128;
+  per_lane_kernel<<<(n + nt - 1) / nt, nt, 0, (cudaStream_t)stream>>>(
+      n, nbits, scalars, k, (const uint32_t*)qx, (const uint32_t*)qy, (uint32_t*)out, C);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sp2_msm_per_lane(int n, int nbits, const void* scalars, const void* qx,
+                                const void* qy, void* out, const uint32_t* curve_words,
+                                void* stream) {
+  return launch_per_lane(n, nbits, (const uint32_t*)scalars, fe_zero_host(), qx, qy, out,
+                         curve_words, stream);
+}
+
+extern "C" int sp2_scalar_mul_base(int n, int nbits, const uint32_t* k_words,
+                                   const void* qx, const void* qy, void* out,
+                                   const uint32_t* curve_words, void* stream) {
+  return launch_per_lane(n, nbits, nullptr, fe_from_words(k_words), qx, qy, out,
+                         curve_words, stream);
 }
 
 extern "C" int sp2_msm_rows(int rows, int npts, int n_win, const void* scalars,

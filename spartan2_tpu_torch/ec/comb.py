@@ -107,6 +107,32 @@ def pt_add(P: torch.Tensor, Q: torch.Tensor, curve: CurveSpec) -> torch.Tensor:
     return _sel(_is_zero(Z1), Q, out)
 
 
+def pt_add_mixed(P: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor,
+                 curve: CurveSpec) -> torch.Tensor:
+    """P + (qx, qy), the second point affine and never the identity;
+    complete, with the formulas and branches of csrc/curve.cuh pt_add_mixed."""
+    F = curve.base
+    mul, add, sub = (lambda a, b: ops.mont_mul(a, b, F),
+                     lambda a, b: ops.add(a, b, F), lambda a, b: ops.sub(a, b, F))
+    X1, Y1, Z1 = P.unbind(-2)
+    Z1Z1 = mul(Z1, Z1)
+    U2 = mul(qx, Z1Z1)
+    S2 = mul(qy, mul(Z1, Z1Z1))
+    H, Rr = sub(U2, X1), sub(S2, Y1)
+    HH = mul(H, H)
+    HHH = mul(H, HH)
+    V = mul(X1, HH)
+    X3 = sub(sub(mul(Rr, Rr), HHH), add(V, V))
+    Y3 = sub(mul(Rr, sub(V, X3)), mul(Y1, HHH))
+    out = torch.stack([X3, Y3, mul(Z1, H)], -2)
+    h0, r0 = _is_zero(H), _is_zero(Rr)
+    if bool((h0 & r0).any()):
+        out = _sel(h0 & r0, pt_dbl(P, curve), out)
+    out = _sel(h0 & ~r0, _inf_like(P, curve), out)
+    one = ops.const(1, F, qx.shape[:-1], qx.device)
+    return _sel(_is_zero(Z1), torch.stack([qx, qy, one], -2), out)
+
+
 def to_affine(pts: torch.Tensor, curve: CurveSpec) -> list[Affine]:
     """(n, 3, 8) Jacobian Montgomery points -> host affine points."""
     flat = limbs_to_ints(pts.reshape(-1, 8), curve.base, mont=True)

@@ -5,8 +5,13 @@ all point arithmetic from halo2curves; src/provider/traits.rs:166-353 wires
 it).  The host implementation here serves:
 
   * setup-time generator derivation (``from_label``),
-  * MSMs below 64 points (small host commitments, the IPA),
+  * MSMs below 64 points (the verifier circuit's row commitments, the
+    IPA) and scalar multiplications, in C (native/ec_host.c),
   * ground truth for the device EC kernel tests.
+
+``scalar_mul`` and ``msm`` call the C library, built at first use (a
+failed build raises); ``scalar_mul_plain`` and ``msm_plain`` are their
+Python versions, which the tests compare with and nothing else calls.
 
 Bulk prover-side MSMs run on the card (ec/comb.py, csrc/comb.cu), as
 does the verifier's fold of 64 or more row commitments (ec/msm.py,
@@ -40,6 +45,45 @@ from ..field.constants import (
 
 # Affine points are (x, y) tuples of canonical ints; None is the identity.
 Affine = tuple[int, int] | None
+
+_EC = None
+_ZERO64 = bytes(64)
+
+
+def _native_ec():
+    """(msm, scalar_mul) over byte buffers from the C library, built at
+    first use."""
+    global _EC
+    if _EC is None:
+        from ..native import load_ec
+
+        _EC = load_ec()
+    return _EC
+
+
+@functools.lru_cache(maxsize=None)
+def _native_params(curve: "CurveSpec") -> bytes:
+    """The C library's 13 x u64 parameter block: p, n0 = -p^-1 mod 2^64,
+    a * 2^256 mod p, 2^512 mod p, little-endian."""
+    p = curve.base.modulus
+    n0 = -pow(p, -1, 1 << 64) % (1 << 64)
+    a_mont = curve.a % p * (1 << 256) % p
+    r2 = pow(1 << 256, 2, p)
+    return (p.to_bytes(32, "little") + n0.to_bytes(8, "little")
+            + a_mont.to_bytes(32, "little") + r2.to_bytes(32, "little"))
+
+
+def _point_bytes(pt: Affine) -> bytes:
+    """x || y little-endian; the identity as 64 zero bytes."""
+    if pt is None:
+        return _ZERO64
+    return pt[0].to_bytes(32, "little") + pt[1].to_bytes(32, "little")
+
+
+def _jac_from_bytes(out: bytes):
+    return (int.from_bytes(out[0:32], "little"),
+            int.from_bytes(out[32:64], "little"),
+            int.from_bytes(out[64:96], "little"))
 
 
 def tonelli_shanks(n: int, p: int) -> int | None:
@@ -155,6 +199,14 @@ class CurveSpec:
         return (pt[0], (-pt[1]) % self.base.modulus)
 
     def scalar_mul(self, k: int, pt: Affine) -> Affine:
+        """k * pt in C (native/ec_host.c: 4-bit windows)."""
+        k %= self.scalar.modulus
+        out = _native_ec()[1](_native_params(self), k.to_bytes(32, "little"),
+                              _point_bytes(pt))
+        return self.to_affine(_jac_from_bytes(out))
+
+    def scalar_mul_plain(self, k: int, pt: Affine) -> Affine:
+        """Plain version of ``scalar_mul``: double-and-add over Python ints."""
         k %= self.scalar.modulus
         if k == 0 or pt is None:
             return None
@@ -169,8 +221,20 @@ class CurveSpec:
     # ---------------- MSM (verifier-side scale) ----------------
 
     def msm(self, scalars: list[int], points: list[Affine]) -> Affine:
-        """Pippenger MSM over Python ints (reference: src/provider/msm.rs).
-        Serves the small host MSMs (ec/msm.py msm_points below 64 points)."""
+        """sum_i scalars[i] * points[i] by Pippenger in C (native/ec_host.c;
+        reference: src/provider/msm.rs).  Serves the small host MSMs (the
+        verifier circuit's row commitments, ec/msm.py msm_points below 64
+        points)."""
+        if len(scalars) != len(points):
+            raise ValueError(f"msm: {len(scalars)} scalars for {len(points)} points")
+        q = self.scalar.modulus
+        sc = b"".join((s % q).to_bytes(32, "little") for s in scalars)
+        pts = b"".join(_point_bytes(pt) for pt in points)
+        out = _native_ec()[0](_native_params(self), sc, pts, len(scalars))
+        return self.to_affine(_jac_from_bytes(out))
+
+    def msm_plain(self, scalars: list[int], points: list[Affine]) -> Affine:
+        """Plain version of ``msm``: the same Pippenger over Python ints."""
         assert len(scalars) == len(points)
         n = len(scalars)
         if n == 0:

@@ -1,5 +1,7 @@
 """Windowed MSMs over runtime points: kernels 5 and C (csrc/msm.cu) and
-their plain version.
+their plain version; and the masked sum, the per-lane double-and-add and
+the host-scalar multiple of affine points (csrc/msm.cu's other entries)
+with theirs.
 
 sum_i s_i * Q_i for points known only at run time, such as the row
 commitments a Hyrax verifier folds (kernel 5: the JAX package's
@@ -13,6 +15,12 @@ The points may come from a proof, so every addition is complete.
 
 The plain version follows the kernel's order of additions exactly, so
 the kernel's Jacobian output equals it limb for limb.
+
+``msm_binary``, ``msm_points_per_lane`` and ``scalar_mul_host_base`` are
+the JAX package's DeviceCurve functions of the same names (ec/device.py
+:445, :468, :474).  They take affine Montgomery coordinates qx, qy of
+shape (n, 8), never the identity, as JAX takes Qx, Qy, and return
+Jacobian Montgomery points.  No prove path calls them.
 """
 
 from __future__ import annotations
@@ -20,14 +28,18 @@ from __future__ import annotations
 import torch
 
 from ..errors import InvalidCommitmentLengthError
+from ..field import ops
 from ..field.limbs import to_device
 from ..utils.cuda import CudaKernel, I, P, check_cuda
-from .comb import (_inf_like, curve_words, pt_add, pt_dbl, row_sum_plain,
-                   scalar_digits, to_affine)
+from .comb import (_inf_like, _sel, curve_words, pt_add, pt_add_mixed, pt_dbl,
+                   row_sum_plain, scalar_digits, to_affine)
 from .curve import Affine, CurveSpec
 
 MSM = CudaKernel("msm", {"sp2_msm": [I, I, P, P, P, P, P, P],
-                         "sp2_msm_rows": [I, I, I, P, P, P, P, P, P]})
+                         "sp2_msm_rows": [I, I, I, P, P, P, P, P, P],
+                         "sp2_msm_binary": [I, P, P, P, P, P, P],
+                         "sp2_msm_per_lane": [I, I, P, P, P, P, P],
+                         "sp2_scalar_mul_base": [I, I, P, P, P, P, P]})
 
 MSM_WINDOW_BITS = 4
 MSM_DIGITS = 1 << MSM_WINDOW_BITS
@@ -35,6 +47,7 @@ FULL_BITS = 256
 # Below this many points the host Pippenger serves, as in the JAX
 # package's _msm_auto (pcs/hyrax.py:674).
 MSM_MIN_POINTS = 64
+BIN_LANES = 256  # lanes a block of msm_binary sums (csrc/msm.cu)
 
 
 def msm_windows(nbits: int) -> int:
@@ -138,3 +151,111 @@ def msm_points(scalars: list[int], points: list[Affine], curve: CurveSpec,
     jac = msm(sc, to_jacobian(points, curve, device), curve,
               max(scalars).bit_length())
     return to_affine(jac.reshape(1, 3, 8), curve)[0]
+
+
+# ---------------------------------------------------------------------------
+# msm_binary, msm_points_per_lane, scalar_mul_host_base
+# ---------------------------------------------------------------------------
+
+
+def _check_affine(qx: torch.Tensor, qy: torch.Tensor) -> int:
+    n = qx.shape[0]
+    if n < 1 or qx.shape != (n, 8) or qy.shape != (n, 8):
+        raise ValueError("points: qx and qy of shape (n, 8), n > 0")
+    return n
+
+
+def _affine_jac(qx: torch.Tensor, qy: torch.Tensor, curve: CurveSpec) -> torch.Tensor:
+    one = ops.const(1, curve.base, qx.shape[:-1], qx.device)
+    return torch.stack([qx, qy, one], -2)
+
+
+def msm_binary_plain(bits: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor,
+                     curve: CurveSpec) -> torch.Tensor:
+    """Plain version of ``msm_binary``: the selected points padded with the
+    identity to blocks of BIN_LANES, each block's sum, then the blocks'."""
+    n = _check_affine(qx, qy)
+    lanes = _affine_jac(qx, qy, curve)
+    lanes = _sel(bits == 1, lanes, _inf_like(lanes, curve))
+    blocks = -(-n // BIN_LANES)
+    pad = _inf_like(torch.empty(blocks * BIN_LANES - n, 3, 8, device=qx.device), curve)
+    lanes = torch.cat([lanes, pad]).reshape(blocks, BIN_LANES, 3, 8)
+    return row_sum_plain(row_sum_plain(lanes, curve)[None], curve)[0]
+
+
+def msm_binary(bits: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor,
+               curve: CurveSpec) -> torch.Tensor:
+    """sum_i [bits[i] == 1] (qx[i], qy[i]) -> (3, 8) Jacobian (JAX
+    DeviceCurve.msm_binary): bits (n,) int32, a masked tree sum of
+    complete additions, the identity when no bit is set."""
+    if qx.device.type == "cpu":
+        return msm_binary_plain(bits, qx, qy, curve)
+    n = _check_affine(qx, qy)
+    check_cuda(bits, qx, qy)
+    if bits.shape != (n,):
+        raise ValueError("msm_binary: bits (n,) for n points")
+    partial = torch.empty(-(-n // BIN_LANES), 3, 8, dtype=torch.int32, device=qx.device)
+    out = torch.empty(3, 8, dtype=torch.int32, device=qx.device)
+    MSM.call("sp2_msm_binary", n, bits.data_ptr(), qx.data_ptr(), qy.data_ptr(),
+             partial.data_ptr(), out.data_ptr(), curve_words(curve))
+    return out
+
+
+def msm_points_per_lane_plain(scalars: torch.Tensor, qx: torch.Tensor,
+                              qy: torch.Tensor, curve: CurveSpec,
+                              nbits: int = FULL_BITS) -> torch.Tensor:
+    """Plain version of ``msm_points_per_lane``."""
+    _check_affine(qx, qy)
+    u = scalars.to(torch.int64) & 0xFFFFFFFF
+    acc = _inf_like(_affine_jac(qx, qy, curve), curve)
+    for b in range(nbits - 1, -1, -1):
+        acc = pt_dbl(acc, curve)
+        bit = ((u[:, b // 32] >> (b % 32)) & 1) == 1
+        acc = _sel(bit, pt_add_mixed(acc, qx, qy, curve), acc)
+    return acc
+
+
+def msm_points_per_lane(scalars: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor,
+                        curve: CurveSpec, nbits: int = FULL_BITS) -> torch.Tensor:
+    """s_i (qx[i], qy[i]) in each lane -> (n, 3, 8) Jacobian, no reduction
+    (JAX DeviceCurve.msm_points_per_lane): scalars (n, 8) canonical below
+    2^nbits, a left-to-right double-and-add over nbits <= 256 bits with a
+    complete mixed addition, one thread per lane."""
+    if not 0 <= nbits <= FULL_BITS:
+        raise ValueError("msm_points_per_lane: 0 <= nbits <= 256")
+    if qx.device.type == "cpu":
+        return msm_points_per_lane_plain(scalars, qx, qy, curve, nbits)
+    n = _check_affine(qx, qy)
+    check_cuda(scalars, qx, qy)
+    if scalars.shape != (n, 8):
+        raise ValueError("msm_points_per_lane: scalars (n, 8) for n points")
+    out = torch.empty(n, 3, 8, dtype=torch.int32, device=qx.device)
+    MSM.call("sp2_msm_per_lane", n, nbits, scalars.data_ptr(), qx.data_ptr(),
+             qy.data_ptr(), out.data_ptr(), curve_words(curve))
+    return out
+
+
+def scalar_mul_host_base_plain(k: int, qx: torch.Tensor, qy: torch.Tensor,
+                               curve: CurveSpec) -> torch.Tensor:
+    """Plain version of ``scalar_mul_host_base``: ``msm_points_per_lane_plain``
+    with k in every lane, over the bit length of k."""
+    k %= curve.scalar.modulus
+    scalars = to_device([k], curve.scalar, qx.device).expand(qx.shape[0], 8)
+    return msm_points_per_lane_plain(scalars, qx, qy, curve, k.bit_length())
+
+
+def scalar_mul_host_base(k: int, qx: torch.Tensor, qy: torch.Tensor,
+                         curve: CurveSpec) -> torch.Tensor:
+    """k (qx[i], qy[i]) for one host scalar k (reduced mod q) -> (n, 3, 8)
+    Jacobian (JAX DeviceCurve.scalar_mul_host_base): the per-lane
+    double-and-add of ``msm_points_per_lane`` with k passed by value to
+    every lane (entry sp2_scalar_mul_base) over the bit length of k."""
+    if qx.device.type == "cpu":
+        return scalar_mul_host_base_plain(k, qx, qy, curve)
+    n = _check_affine(qx, qy)
+    check_cuda(qx, qy)
+    k %= curve.scalar.modulus
+    out = torch.empty(n, 3, 8, dtype=torch.int32, device=qx.device)
+    MSM.call("sp2_scalar_mul_base", n, k.bit_length(), k.to_bytes(32, "little"),
+             qx.data_ptr(), qy.data_ptr(), out.data_ptr(), curve_words(curve))
+    return out

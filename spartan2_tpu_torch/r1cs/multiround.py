@@ -219,7 +219,11 @@ class MultiRoundState:
         r_w = pcs.blind(ck, n_p, rng=rng)
         seg = self.w[start_p : start_p + n_p]
         # a round holds one commitment-width row (16 values): a host
-        # commit, as in the JAX package
+        # commit, a 17-point MSM in C (native/ec_host.c).  The JAX package
+        # commits on the host up to 4096 values when its C library loads
+        # and 256 without (r1cs/multiround.py:231); a row here is always
+        # below both, and the port's C library always loads, so every
+        # round commits on the host.
         with span("vc_commit"):
             comm = pcs.commit_host(ck, seg, r_w)
             transcript.absorb_bytes(b"comm_w_round",

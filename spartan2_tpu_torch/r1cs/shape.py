@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from ..errors import IncorrectWitnessError
+from ..errors import IncorrectWitnessError, UnSatError
 from ..field.constants import FieldSpec
 from ..frontend.constraint_system import ConstraintSystem, SpartanCircuitAPI
 from ..pcs.hyrax import HyraxCommitment
@@ -256,6 +256,17 @@ class SplitR1CSShape:
         M = self.multiply_vec(Ty)
         return tuple(round_evals(DOT, self.num_cons, [Tx, M[k]], F)[0]
                      for k in range(3))
+
+    def is_sat_host(self, z: list[int]) -> None:
+        """Raise UnSatError unless (A z) * (B z) = C z row by row, over
+        Python ints (z = (W, 1, X) at width num_cols)."""
+        p = self.field.modulus
+        az = self.A.multiply_vec_host(z)
+        bz = self.B.multiply_vec_host(z)
+        cz = self.C.multiply_vec_host(z)
+        for i, (a, b, c) in enumerate(zip(az, bz, cz)):
+            if a * b % p != c % p:
+                raise UnSatError(f"constraint {i} unsatisfied")
 
 
 @dataclass

@@ -251,7 +251,8 @@ def round_evals(mode: int, n: int, vecs: list, spec: FieldSpec) -> list[int]:
 # ---------------------------------------------------------------------------
 
 
-def _bind_mont_plain(vecs: list, n: int, rr: torch.Tensor, spec: FieldSpec) -> None:
+def bind_mont_plain(vecs: list, n: int, rr: torch.Tensor, spec: FieldSpec) -> None:
+    """``bind_plain`` with r an (8,) Montgomery tensor on the vectors' device."""
     half = n // 2
     for v in vecs:
         lo, hi = v[..., :half, :], v[..., half:n, :]
@@ -261,7 +262,7 @@ def _bind_mont_plain(vecs: list, n: int, rr: torch.Tensor, spec: FieldSpec) -> N
 
 def bind_plain(vecs: list, n: int, r: int, spec: FieldSpec) -> None:
     """Plain version of ``bind`` (in place)."""
-    _bind_mont_plain(vecs, n, ops.const(r, spec, device=vecs[0].device), spec)
+    bind_mont_plain(vecs, n, ops.const(r, spec, device=vecs[0].device), spec)
 
 
 def bind(vecs: list, n: int, r: int, spec: FieldSpec) -> None:
@@ -285,17 +286,18 @@ def _check_slot(vecs: list, r_slot: torch.Tensor) -> list:
     if not 1 <= len(vecs) <= 4 or any(v.dim() != 2 for v in vecs):
         raise ValueError("device-r binds take 1 to 4 (rows, 8) vectors")
     check_cuda(*vecs, r_slot)
-    if r_slot.shape != (2, 8):
-        raise ValueError("the challenge slot is (2, 8): r, 1 - r")
     return [v.data_ptr() for v in vecs] + [None] * (4 - len(vecs))
 
 
 def bind_dev(vecs: list, n: int, r_slot: torch.Tensor, spec: FieldSpec) -> None:
     """``bind`` of (rows, 8) vectors with r read on the device from
-    ``r_slot`` = [r, 1 - r] (Montgomery), as the round finish wrote it."""
+    ``r_slot`` = [r, 1 - r] (Montgomery), as the round finish wrote it;
+    only r is read, so a (1, 8) slot [r] serves as well."""
     if vecs[0].device.type == "cpu":
-        _bind_mont_plain(vecs, n, r_slot[0], spec)
+        bind_mont_plain(vecs, n, r_slot[0], spec)
         return
+    if r_slot.dim() != 2 or r_slot.shape[0] < 1 or r_slot.shape[1] != 8:
+        raise ValueError("bind_dev: r in row 0 of a (rows, 8) slot")
     ptrs = _check_slot(vecs, r_slot)
     _check_vecs(vecs, n)
     SUMCHECK.call("sp2_bind_dev", n // 2, len(vecs), *ptrs, r_slot.data_ptr(),
@@ -407,6 +409,8 @@ def inner0_bind_dev(vecs: list, r_slot: torch.Tensor, num_vars: int, num_extra: 
     if vecs[0].device.type == "cpu":
         _inner0_bind_mont_plain(vecs, r_slot[0], r_slot[1], num_vars, num_extra, spec)
         return
+    if r_slot.shape != (2, 8):
+        raise ValueError("the challenge slot is (2, 8): r, 1 - r")
     ptrs = _check_slot(vecs, r_slot)
     _check_vecs(vecs, num_vars + num_extra)
     SUMCHECK.call("sp2_inner0_bind_dev", num_vars, num_extra, len(vecs), *ptrs,

@@ -18,6 +18,7 @@ def test_no_jax_imports_in_port_sources():
         ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_worker.py"]
     assert len(files) > 20
     assert ROOT / "spartan2_tpu_torch" / "parallel" / "sumcheck_shard.py" in files
+    assert ROOT / "spartan2_tpu_torch" / "frontend" / "test_shape_cs.py" in files
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -57,6 +58,11 @@ import spartan2_tpu_torch.transcript.device
 import spartan2_tpu_torch.parallel.mesh
 import spartan2_tpu_torch.parallel.sumcheck_shard
 import tests.torch_mesh_worker
+# and the host curve in C, the curve and multilinear device functions and
+# the host helpers
+import spartan2_tpu_torch.ec.msm
+import spartan2_tpu_torch.frontend.test_shape_cs
+import spartan2_tpu_torch.polys.multilinear
 from tests.torch_helpers import CubicCircuit, det
 engine, circuit = get_engine("P256HyraxEngine"), CubicCircuit()
 pk, vk = SpartanSNARK.setup(engine, circuit, width=4, device="cpu")
@@ -66,6 +72,9 @@ assert SpartanSNARK.verify(proof, vk) == [15]
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "spartan2_tpu" or m.startswith("spartan2_tpu.")]
 assert not loaded, loaded
+# the prove's host curve arithmetic ran in C
+import spartan2_tpu_torch.ec.curve as curve_mod
+assert curve_mod._EC is not None
 # CPU tensors ran the plain versions: no kernel was built or launched
 from spartan2_tpu_torch.ec.comb import COMB
 from spartan2_tpu_torch.ec.msm import MSM
@@ -84,3 +93,25 @@ print("isolated")
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "isolated" in out.stdout
+
+
+def test_host_multilinear_loads_no_kernel_layer():
+    """polys/multilinear.py's host evaluations, which every SNARK and
+    verifier imports, load neither torch nor the sum-check kernels; its
+    device functions import kernel 2 when called."""
+    code = """
+import sys
+from spartan2_tpu_torch.field.constants import get_field
+from spartan2_tpu_torch.polys.multilinear import mle_evaluate_host, sparse_poly_evaluate_host
+F = get_field("p256_scalar")
+assert mle_evaluate_host(F, [1, 2, 3, 4], [0, 1]) == 2
+assert sparse_poly_evaluate_host(F, 2, [1, 2], [0, 1]) == 2
+loaded = [m for m in ("torch", "spartan2_tpu_torch.sumcheck.device") if m in sys.modules]
+assert not loaded, loaded
+print("host only")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "host only" in out.stdout

@@ -1,5 +1,6 @@
-"""Record JAX reference runs of SpartanSNARK and SpartanZkSNARK on the
-cubic circuit.
+"""Record JAX reference runs: SpartanSNARK and SpartanZkSNARK on the
+cubic circuit, NeutronNovaZkSNARK, the mesh tests' chain circuits, and
+the device curve and multilinear functions that no prove calls.
 
 The port's byte-identity tests (tests/test_torch_spartan.py,
 tests/test_torch_spartan_zk.py) load the keys and the prep state written
@@ -16,6 +17,7 @@ Run from the repository root:
     SPARTAN2_NN_HOST=1 JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --nn square
     JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --chain      # chain_pallas.bin
     SPARTAN2_NN_HOST=1 JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --chain-nn
+    JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --curve      # curve_device.json
 
 The committed ``cubic_p256.bin`` was recorded with the JAX package of
 commit 4cf6d4bc4a04b6b518ace38bd3ac5e0ff6d2cd09, and ``cubic_zk_p256.bin``
@@ -46,13 +48,29 @@ x = 3 and x = 5) with ``Core`` (y = 6 * 7).  They are recorded here from
 the JAX package's single-device provers; the port's mesh tests
 (tests/test_torch_mesh.py) prove to these bytes on W ranks.
 
-File layout (all integers u64 little-endian):
+``curve_device.json`` holds the JAX package's four device curve and
+multilinear functions, which no JAX prove calls, on P-256 and Pallas:
+``DeviceCurve.msm_binary`` over 8 points, over 5 (padded to 8) and over 5
+with no bit set; ``msm_points_per_lane`` over 8 lanes at nbits 264 (with
+the scalars 0, q - 1 and 1) and 64 (with a zero); ``scalar_mul_host_base``
+with k in {0, 1, q - 1, random} over 5 points; ``mle_evaluate_device`` of
+a table of 2^3 at a point of 3 coordinates.  Inputs come from
+numpy's default_rng(8) and from_label(b"curve_device_golden", 8); they
+are stored beside the outputs (affine points, null for the identity;
+canonical field elements), so the port's tests (tests/
+test_torch_curve_device.py) compile nothing.  Recorded with the JAX
+package of commit 75f2a7b9b871e98a30ce4be4ff5788a989024a42 in 959.1 s,
+nearly all of it XLA:CPU compiles of the per-lane ladders, in one process
+that grew to about 12 GB.
+
+Proof file layout (all integers u64 little-endian):
     b"SP2GOLD1", width, prep_seed, prove_seed,
     then three length-prefixed blobs: key bytes, prep bytes, proof bytes.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import random
 import struct
@@ -68,6 +86,12 @@ OUT = os.path.join(HERE, "cubic_p256.bin")
 OUT_ZK = os.path.join(HERE, "cubic_zk_p256.bin")
 CHAIN_OUT = os.path.join(HERE, "chain_pallas.bin")
 NN_CHAIN_OUT = os.path.join(HERE, "nn_chain_pallas.bin")
+CURVE_OUT = os.path.join(HERE, "curve_device.json")
+CURVE_SEED = 8
+CURVE_NAMES = ("p256", "pallas")
+CURVE_N = 8  # points of the per-lane and the full binary recordings
+CURVE_N_PAD = 5  # points of the padded binary and the host-base recordings
+CURVE_M = 3  # variables of the MLE evaluation
 CHAIN_N = 1000  # ChainCircuit's squarings (tests/test_mesh.py)
 CHAIN_STEP_N = 62  # ChainStep's squarings
 CHAIN_STEP_X0 = [3, 5]
@@ -274,8 +298,86 @@ def jax_chain_prove(nn: bool) -> tuple[bytes, bytes, bytes]:
     return keys, prep_b, serde.spartan_proof_to_bytes(proof, engine)
 
 
+def _affine_json(pts) -> list:
+    return [None if pt is None else [hex(pt[0]), hex(pt[1])] for pt in pts]
+
+
+def jax_curve_record() -> dict:
+    """The JAX package's four device curve and multilinear functions
+    (DeviceCurve.msm_binary, msm_points_per_lane at nbits 264 and 64,
+    scalar_mul_host_base; mle_evaluate_device) on P-256 and Pallas, from
+    numpy-seeded inputs: inputs as canonical ints, outputs as affine
+    points (null for the identity) or canonical field elements."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from spartan2_tpu.ec.curve import get_curve
+    from spartan2_tpu.ec.device import DeviceCurve
+    from spartan2_tpu.field.jnp_ops import FieldOps
+    from spartan2_tpu.field.limbs import ints_to_limbs_np, limbs_to_ints
+    from spartan2_tpu.polys.multilinear import mle_evaluate_device, mle_evaluate_host
+
+    rng = np.random.default_rng(CURVE_SEED)
+
+    def below(bound: int, n: int) -> list[int]:
+        return [int.from_bytes(rng.bytes(40), "little") % bound for _ in range(n)]
+
+    out = {}
+    for name in CURVE_NAMES:
+        c = get_curve(name)
+        dc, q = DeviceCurve(c), c.scalar.modulus
+        pts = c.from_label(b"curve_device_golden", CURVE_N)
+
+        def dev(points):
+            return (jnp.asarray(ints_to_limbs_np([p[0] for p in points], c.base, mont=True)),
+                    jnp.asarray(ints_to_limbs_np([p[1] for p in points], c.base, mont=True)))
+
+        Qx, Qy = dev(pts)
+        Px, Py = dev(pts[:CURVE_N_PAD])
+        rec = {"points": _affine_json(pts), "binary": [], "per_lane": [],
+               "host_base": []}
+        bits8 = [int(b) for b in rng.integers(0, 2, CURVE_N)]
+        bits5 = [1, 0, 1, 1, 0]
+        for bits, (x, y) in ((bits8, (Qx, Qy)), (bits5, (Px, Py)),
+                             ([0] * CURVE_N_PAD, (Px, Py))):
+            got = dc.msm_binary(jnp.asarray(np.array(bits, np.int32)), x, y)
+            rec["binary"].append({"bits": bits,
+                                  "out": _affine_json(dc.to_affine_host(got))[0]})
+        full = below(q, CURVE_N)
+        full[1], full[2], full[3] = 0, q - 1, 1
+        small = below(1 << 64, CURVE_N)
+        small[4] = 0
+        for scal, nbits in ((full, 264), (small, 64)):
+            sc = jnp.asarray(ints_to_limbs_np(scal, c.scalar, mont=False))
+            got = dc.msm_points_per_lane(sc, Qx, Qy, nbits)
+            rec["per_lane"].append({"nbits": nbits, "scalars": [hex(v) for v in scal],
+                                    "out": _affine_json(dc.to_affine_host(got))})
+        for k in (0, 1, q - 1, below(q, 1)[0]):
+            got = dc.scalar_mul_host_base(k, Px, Py)
+            rec["host_base"].append({"k": hex(k),
+                                     "out": _affine_json(dc.to_affine_host(got))})
+        F = c.scalar
+        table, r = below(F.modulus, 1 << CURVE_M), below(F.modulus, CURVE_M)
+        got = mle_evaluate_device(
+            FieldOps(F), jnp.asarray(ints_to_limbs_np(table, F, mont=True)),
+            jnp.asarray(ints_to_limbs_np(r, F, mont=True)))
+        rec["mle"] = {"table": [hex(v) for v in table], "r": [hex(v) for v in r],
+                      "out": hex(limbs_to_ints(np.asarray(got), F, mont=True)[0]),
+                      "host": hex(mle_evaluate_host(F, table, r))}
+        out[name] = rec
+    return out
+
+
 def main() -> int:
     args = sys.argv[1:]
+    if "--curve" in args:
+        t0 = time.time()
+        rec = jax_curve_record()
+        with open(CURVE_OUT, "w") as f:
+            json.dump(rec, f, indent=1)
+            f.write("\n")
+        print(f"wrote {CURVE_OUT} in {time.time() - t0:.1f} s")
+        return 0
     for flag, out, nn in (("--chain", CHAIN_OUT, False),
                           ("--chain-nn", NN_CHAIN_OUT, True)):
         if flag in args:
