@@ -32,7 +32,8 @@
    public value rejected, one traced and one profiled prove; its counts
    are set to 0 before its setup and read after its verify.  The traced
    ZK and NN proves print their verifier-circuit commits (vc_commit:
-   calls and host ms).
+   calls and host ms).  Each profiled prove (steps 2-4) prints the device
+   time and launches of its SpMV and comb rows kernels.
 5. Proves the cubic circuit on the card with both Spartan SNARKs, and
    the two NeutronNova test configurations, from the JAX package's
    recorded keys, prep state and seeds (tests/torch_golden/): each proof
@@ -57,7 +58,11 @@
    timed region), and computes each kernel's bound from the bytes, the
    32-bit multiply-adds and the Keccak logic operations this run's data
    needs.  The comb, MSM and Hyrax-bind kernels are also held against
-   their plain versions on the Pallas curve (a = 0).
+   their plain versions on the Pallas curve (a = 0).  Kernel 1 also runs
+   on three skewed matrices whose long rows take a warp and a block
+   (spmv with a prefix, spmv_combine, spmv_batched), and kernel 3 also at
+   the blinds' shape (16 rows over h's one-column table) and at one
+   full-width row.
    (f) The curve phase, the last four device functions' own path (no
    prove calls them): on P-256 and Pallas, with the counts set to 0
    first and read after, msm_binary at 2048 points, at 1000 (padded) and
@@ -259,9 +264,74 @@ def msm_point_ops(scalars: torch.Tensor, nw: int) -> float:
             + rows * (nw - 1) * (4 * MONT_MULS_PER_DBL + MONT_MULS_PER_ADD))
 
 
+def comb_bound_args(scalars: torch.Tensor, n_win: int) -> tuple:
+    """(bytes, Montgomery products) a comb rows-MSM of (R, C, 8) scalars
+    needs: the scalars read, one 96-byte table point per nonzero digit and
+    the rows written; a row of k such points sums them with k - 1
+    additions."""
+    from spartan2_tpu_torch.ec.comb import scalar_digits
+
+    R, C = scalars.shape[:2]
+    nz = (scalar_digits(scalars, n_win) != 0).sum((0, 2))
+    adds = int((nz - 1).clamp(min=0).sum())
+    return R * C * 32 + int(nz.sum()) * 96 + R * 96, adds * MONT_MULS_PER_ADD
+
+
 def gathered(mats) -> int:
     """Distinct entries of the input vector that SpMVs over ``mats`` read."""
     return int(torch.unique(torch.cat([m.indices for m in mats])).numel())
+
+
+def check_spmv_skewed(F, dev) -> list:
+    """Kernel 1 on three matrices whose rows span every class: 2^18 rows of
+    0 to 3 entries, 2000 of 17 to 256 (a warp each) and 12 of 257 to 6000
+    (a block each) in each matrix; spmv with a prefix, spmv_combine with
+    the joint classes and spmv_batched at I = 4 against their plain
+    versions -> detail records."""
+    import numpy as np
+
+    from spartan2_tpu_torch.r1cs.sparse import (
+        DeviceCSR, RowClasses, spmv, spmv_batched, spmv_batched_plain, spmv_combine,
+        spmv_combine_plain, spmv_plain)
+
+    n = 1 << 18
+    rng = np.random.default_rng(11)
+    gen = torch.Generator().manual_seed(11)
+    mats = []
+    for _ in range(3):
+        lengths = rng.integers(0, 4, n)
+        lengths[rng.choice(n, 2000, replace=False)] = rng.integers(17, 257, 2000)
+        lengths[rng.choice(n, 12, replace=False)] = rng.integers(257, 6001, 12)
+        rows_e = np.repeat(np.arange(n), lengths)
+        cols_e = rng.integers(0, n, len(rows_e))
+        vals = rand_field(len(rows_e), F, gen, "cpu").numpy()
+        mats.append(DeviceCSR.from_arrays(rows_e, cols_e, vals, n, dev))
+    joint = RowClasses.joint(mats)
+    if any(c.n_warp == 0 or c.n_block == 0 for c in [m.classes for m in mats] + [joint]):
+        raise RuntimeError("skewed SpMV: a matrix lacks warp or block rows")
+    z = rand_field(n, F, gen, dev)
+    zb = rand_field(4 * n, F, gen, dev).reshape(4, n, 8)
+    prefix = rand_field(3 * n, F, gen, dev).reshape(3, n, 8)
+    rr = random.Random(12).randrange(F.modulus)
+    nnz = sum(m.indices.shape[0] for m in mats)
+    cls = (f"warp rows {[m.classes.n_warp for m in mats]}, block rows "
+           f"{[m.classes.n_block for m in mats]}, joint {joint.n_warp} / {joint.n_block}")
+    out = []
+    for name, fn, plain, nbytes, muls in (
+            ("spmv with a prefix", lambda: spmv(mats, z, F, prefix),
+             lambda: spmv_plain(mats, z, F, prefix),
+             nnz * 36 + gathered(mats) * 32 + 6 * n * 32, nnz),
+            ("spmv_combine", lambda: spmv_combine(mats, z, rr, F, joint),
+             lambda: spmv_combine_plain(mats, z, rr, F),
+             nnz * 36 + gathered(mats) * 32 + n * 32, nnz + 2 * n),
+            ("spmv_batched I = 4", lambda: spmv_batched(mats, zb, F),
+             lambda: spmv_batched_plain(mats, zb, F),
+             nnz * 36 + 4 * gathered(mats) * 32 + 12 * n * 32, 4 * nnz)):
+        want, pms = once_ms(plain)
+        same_or_raise(f"{name} on skewed matrices ({cls})", fn(), want, F)
+        out.append(detail_record(f"{name}, skewed 2^18 rows, {nnz} entries ({cls})",
+                                 cuda_ms(fn, 5), pms, nbytes, muls))
+    return out
 
 
 def compare_kernels(pk, prep, proof, launches: dict):
@@ -319,11 +389,12 @@ def compare_kernels(pk, prep, proof, launches: dict):
     # poly_ABC: the transposes with the a + r (b + r c) epilogue
     tmats = [S.dev[n + "t"] for n in "ABC"]
     eqv = rand_field(S.num_cons, F, gen, dev)
-    pms = check("spmv_combine (shape_abc)", spmv_combine(tmats, eqv, rr, F),
+    tcls = S.dev["t_classes"]
+    pms = check("spmv_combine (shape_abc)", spmv_combine(tmats, eqv, rr, F, tcls),
                 lambda: spmv_combine_plain(tmats, eqv, rr, F))
     tnnz = sum(m.indices.shape[0] for m in tmats)
     record_detail("spmv_combine poly_ABC",
-                  cuda_ms(lambda: spmv_combine(tmats, eqv, rr, F), 10), pms,
+                  cuda_ms(lambda: spmv_combine(tmats, eqv, rr, F, tcls), 10), pms,
                   tnnz * 36 + gathered(tmats) * 32 + S.num_cols * 32,
                   tnnz + 2 * S.num_cols)
     # the prep's prefix SpMV
@@ -335,6 +406,8 @@ def compare_kernels(pk, prep, proof, launches: dict):
     pnnz = sum(m.indices.shape[0] for m in pmats)
     record_detail("spmv prefix (prep)", cuda_ms(lambda: spmv(pmats, wp, F), 5), pms,
                   pnnz * 36 + gathered(pmats) * 32 + 3 * S.num_cons * 32, pnnz)
+
+    detail.extend(check_spmv_skewed(F, dev))
 
     # kernel 2: eq table, and one outer round (evaluations + bind) at 2^m
     n = S.num_cons
@@ -406,13 +479,23 @@ def compare_kernels(pk, prep, proof, launches: dict):
     sc = rand_field(2 * C, F, gen, dev).reshape(2, C, 8)
     pms = check("comb_rows [LZ, d_vec]", comb_rows(sc, comb_full.table, curve),
                 lambda: comb_rows_plain(sc, comb_full.table, curve))
-    # the work depends on the data: one table entry and one addition per
-    # nonzero digit, then the row sums
-    nz = int((scalar_digits(sc, nw) != 0).sum())
+    # the work depends on the data: one table point per nonzero digit, and
+    # one addition fewer than those points in each row
     record_kernel("comb", "spartan2_tpu/ec/comb.py:123",
                   cuda_ms(lambda: comb_rows(sc, comb_full.table, curve), 5), pms,
-                  2 * C * 32 + nz * 96 + 2 * 96,
-                  (nz + 2 * (C - 1)) * MONT_MULS_PER_ADD)
+                  *comb_bound_args(sc, nw))
+    # the blinds' multiples of h (every blinding and rerandomize): C = 1,
+    # 16 rows; and one full-width row
+    comb_h = pk.ck.comb_h()
+    for name, sc1, tab in (
+            (f"comb_rows 16 x 1 (h, {comb_h.n_win} windows)",
+             rand_field(16, F, gen, dev).reshape(16, 1, 8), comb_h.table),
+            (f"comb_rows 1 x {C} ({nw} windows)",
+             rand_field(C, F, gen, dev).reshape(1, C, 8), comb_full.table)):
+        pms = check(name, comb_rows(sc1, tab, curve),
+                    lambda: comb_rows_plain(sc1, tab, curve))
+        record_detail(name, cuda_ms(lambda: comb_rows(sc1, tab, curve), 10), pms,
+                      *comb_bound_args(sc1, tab.shape[0]))
     gx = to_device([g[0] for g in pk.ck.ck], Fb, dev, mont=True)
     gy = to_device([g[1] for g in pk.ck.ck], Fb, dev, mont=True)
     nwf = n_windows(FULL_BITS)
@@ -436,8 +519,7 @@ def compare_kernels(pk, prep, proof, launches: dict):
     record_detail(f"comb_rows {rows_pre} x {C}, {small.n_win} windows, "
                   f"{nz} nonzero digits",
                   cuda_ms(lambda: comb_rows(scp, small.table, curve), 2), pms,
-                  rows_pre * C * 32 + nz * 96 + rows_pre * 96,
-                  (nz + rows_pre * (C - 1)) * MONT_MULS_PER_ADD)
+                  *comb_bound_args(scp, small.n_win))
 
     # kernel 4: the PCS row bind
     R = S.num_vars // C
@@ -666,8 +748,23 @@ def print_vc_commit(path: str, spans) -> None:
           f"{ms / calls:.4f} ms a call", flush=True)
 
 
-def profiled_device_ms(fn) -> tuple[float, float, list]:
-    """(wall s, device ms, top kernels) of one run of fn under torch.profiler."""
+def kernel_group(name: str) -> str | None:
+    """The redesigned kernels' group of a profiler event, if any."""
+    if name.startswith("spmv_"):
+        return "spmv"
+    if name.startswith("comb_") and not name.startswith("comb_build"):
+        return "comb"
+    return None
+
+
+def print_redesigned(path: str, groups: dict) -> None:
+    print(f"{path} prove, SpMV and comb rows kernels (device ms, launches): "
+          f"{json.dumps(groups)}", flush=True)
+
+
+def profiled_device_ms(fn) -> tuple[float, float, list, dict]:
+    """(wall s, device ms, top kernels, {group: [ms, launches]} of the SpMV
+    and comb rows kernels) of one run of fn under torch.profiler."""
     act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act) as prof:
         t0 = time.perf_counter()
@@ -678,7 +775,13 @@ def profiled_device_ms(fn) -> tuple[float, float, list]:
                      for e in prof.key_averages() if e.self_device_time_total > 0),
                     reverse=True)
     top = [(k[:60], round(t / 1e3, 4), c) for t, k, c in dev_us[:14]]
-    return wall, sum(t for t, _, _ in dev_us) / 1e3, top
+    groups: dict = {}
+    for t, k, c in dev_us:
+        g = kernel_group(k)
+        if g is not None:
+            ms, n = groups.get(g, [0.0, 0])
+            groups[g] = [round(ms + t / 1e3, 4), n + c]
+    return wall, sum(t for t, _, _ in dev_us) / 1e3, top, groups
 
 
 def run_spartan(engine, circuit, dev, kernels):
@@ -755,10 +858,11 @@ def run_spartan(engine, circuit, dev, kernels):
     # one more prove with every span synchronized, for the breakdown
     with record() as spans:
         SpartanSNARK.prove(pk, circuit, prep, is_small=True, rng=det(6))
-    wall, dev_ms, top = profiled_device_ms(
+    wall, dev_ms, top, groups = profiled_device_ms(
         lambda: SpartanSNARK.prove(pk, circuit, prep, is_small=True, rng=det(7)))
     phases["profiled_prove_s"], phases["profiled_prove_device_ms"] = wall, dev_ms
     print("prove device time by kernel (ms, launches): " + json.dumps(top), flush=True)
+    print_redesigned("SpartanSNARK", groups)
     print("phases: " + json.dumps(phases), flush=True)
     for title, sp in (("setup", spans_setup), ("prep", spans_prep),
                       ("prove (traced)", spans), ("verify", spans_verify)):
@@ -847,10 +951,11 @@ def run_spartan_zk(engine, S, circuit, dev, kernels):
 
     with record() as spans:
         SpartanZkSNARK.prove(pk, circuit, prep, is_small=True, rng=det(16))
-    wall, dev_ms, top = profiled_device_ms(
+    wall, dev_ms, top, groups = profiled_device_ms(
         lambda: SpartanZkSNARK.prove(pk, circuit, prep, is_small=True, rng=det(17)))
     phases["profiled_prove_s"], phases["profiled_prove_device_ms"] = wall, dev_ms
     print("ZK prove device time by kernel (ms, launches): " + json.dumps(top), flush=True)
+    print_redesigned("ZK", groups)
     print("ZK phases: " + json.dumps(phases), flush=True)
     print("ZK setup spans ms: " + json.dumps(spans_by_name(spans_setup)), flush=True)
     print("ZK prove (traced) spans [calls, ms]: " + json.dumps(spans_by_name(spans)),
@@ -1000,12 +1105,13 @@ def run_neutronnova(engine, dev, kernels):
 
     with record() as spans:
         NN.prove(pk, steps, core, prep, is_small=True, rng=det(28))
-    wall, dev_ms, top = profiled_device_ms(
+    wall, dev_ms, top, groups = profiled_device_ms(
         lambda: NN.prove(pk, steps, core, prep, is_small=True, rng=det(29)))
     phases["profiled_prove_s"], phases["profiled_prove_device_ms"] = wall, dev_ms
     phases["profiled_prove_idle_share"] = 1 - dev_ms / 1e3 / wall
     phases["proof_bytes"] = len(blob)
     print("NN prove device time by kernel (ms, launches): " + json.dumps(top), flush=True)
+    print_redesigned("NN", groups)
     print("NN phases: " + json.dumps(phases), flush=True)
     print("NN setup spans ms: " + json.dumps(spans_by_name(spans_setup)), flush=True)
     print("NN prep spans ms: " + json.dumps(spans_by_name(spans_prep)), flush=True)
@@ -2043,7 +2149,7 @@ def run_mesh(pk, prep, nn_pk, blobs: dict, cfg: dict = MAIN_CFG):
     detail records)."""
     import tempfile
 
-    from spartan2_tpu_torch.ec.comb import comb_rows, comb_rows_plain, scalar_digits
+    from spartan2_tpu_torch.ec.comb import comb_rows, comb_rows_plain
     from spartan2_tpu_torch.field.limbs import limbs_to_ints, to_device
     from spartan2_tpu_torch.parallel.mesh import run_ranks
     from spartan2_tpu_torch.pcs.hyrax import SMALL_BITS
@@ -2196,15 +2302,13 @@ def run_mesh(pk, prep, nn_pk, blobs: dict, cfg: dict = MAIN_CFG):
         4 * nzq * 32, 2 * nzq))
     per = scp.shape[0] // MESH_W
     mine = scp[:per].contiguous()
-    nz = int((scalar_digits(mine, comb.n_win) != 0).sum())
     want, cpms = once_ms(lambda: comb_rows_plain(mine, comb.table, comb.curve))
     same_or_raise(f"comb_rows over a rank's {per} rows", comb_rows(mine, comb.table,
                                                                   comb.curve), want, F)
     detail.append(detail_record(
         f"commit_rows_sharded: comb_rows over a rank's {per} x {S.width}",
         cuda_ms(lambda: comb_rows(mine, comb.table, comb.curve), 3), cpms,
-        per * S.width * 32 + nz * 96 + per * 96,
-        (nz + per * (S.width - 1)) * MONT_MULS_PER_ADD))
+        *comb_bound_args(mine, comb.n_win)))
     rounds = sum(g[0] for out in ranks for g in [out["spartan_gathers"]])
     gather_ms = [1e3 * out["spartan_gathers"][1] / max(1, out["spartan_gathers"][0])
                  for out in ranks]

@@ -23,7 +23,7 @@ from .curve import Affine, CurveSpec
 
 COMB = CudaKernel("comb", {
     "sp2_comb_build": [I, I, P, P, P, P],
-    "sp2_comb_rows": [I, I, I, P, P, P, P, P],
+    "sp2_comb_rows": [I, I, I, I, P, P, P, P, P],
 })
 
 WINDOW_BITS = 6
@@ -216,8 +216,8 @@ def row_sum_plain(pts: torch.Tensor, curve: CurveSpec) -> torch.Tensor:
         pad = _inf_like(torch.empty(R, k * nt - C, 3, 8, device=pts.device), curve)
         pts = torch.cat([pts, pad], 1)
     pts = pts.reshape(R, k, nt, 3, 8)
-    part = _inf_like(pts[:, 0], curve)
-    for i in range(k):
+    part = pts[:, 0]  # the identity plus a point is that point, limb for limb
+    for i in range(1, k):
         part = pt_add(part, pts[:, i], curve)
     s = nt // 2
     while s:
@@ -227,17 +227,73 @@ def row_sum_plain(pts: torch.Tensor, curve: CurveSpec) -> torch.Tensor:
     return part[:, 0].contiguous()
 
 
-def comb_rows_plain(scalars: torch.Tensor, table: torch.Tensor,
-                    curve: CurveSpec) -> torch.Tensor:
-    """Plain version of ``comb_rows``."""
+# Tables of at most this many windows (scalars below 2^66: the witness
+# commits) hold mostly zero digits, which cost a branch where a tree level
+# costs a complete addition: their threads take at least _SPARSE_CHAIN points.
+_SPARSE_WINDOWS = 11
+_SPARSE_CHAIN = 32
+
+
+def comb_chain(C: int, n_win: int) -> int:
+    """Points a thread of the comb kernel's first pass adds before the
+    block tree (csrc/comb.cu): enough that a row of n_win * C points makes
+    at most 128 block partials, and at least 32 on short-scalar tables.  A
+    function of (C, n_win) alone, never of the row count."""
+    k = -(-n_win * C // (_SUM_NT * _SUM_NT))
+    return max(k, _SPARSE_CHAIN) if n_win <= _SPARSE_WINDOWS else k
+
+
+def comb_parts(C: int, n_win: int) -> int:
+    """Block partials of a row of n_win * C comb points (csrc/comb.cu)."""
+    return -(-n_win * C // (_SUM_NT * comb_chain(C, n_win)))
+
+
+def comb_points(scalars: torch.Tensor, table: torch.Tensor,
+                curve: CurveSpec) -> torch.Tensor:
+    """(R, C, 8) scalars -> (R, n_win * C, 3, 8): point w * C + j of row r
+    is T[w][d_{r,j,w}][j], the identity where the digit is 0."""
     R, C = scalars.shape[:2]
     n_win = table.shape[0]
     d = scalar_digits(scalars, n_win)  # (n_win, R, C)
+    w = torch.arange(n_win, device=scalars.device)[:, None, None]
     col = torch.arange(C, device=scalars.device)
-    acc = _inf_like(torch.empty(R, C, 3, 8, device=scalars.device), curve)
-    for w in range(n_win):
-        acc = pt_add(acc, table[w][d[w], col], curve)
-    return row_sum_plain(acc, curve)
+    pts = table[w, d, col]  # (n_win, R, C, 3, 8)
+    pts = _sel(d == 0, _inf_like(pts, curve), pts)
+    return pts.transpose(0, 1).reshape(R, n_win * C, 3, 8)
+
+
+# comb points a chunk of rows of the plain version holds, on the CPU and on
+# a card (where each batched addition costs a fixed ~0.1 s of launches)
+_PLAIN_POINTS = {"cpu": 1 << 18, "cuda": 1 << 23}
+
+
+def comb_rows_plain(scalars: torch.Tensor, table: torch.Tensor,
+                    curve: CurveSpec) -> torch.Tensor:
+    """Plain version of ``comb_rows``, in the kernel's order: a row's
+    points in blocks of 128 k (the identity past the row's end), each
+    block summed as ``row_sum_plain`` sums a row of 128 k columns, then
+    the row's partials the same way; with one partial, that partial.  Rows
+    go in chunks, which changes nothing: each row's sum is its own."""
+    R, C = scalars.shape[:2]
+    n_win = table.shape[0]
+    n, parts = n_win * C, comb_parts(C, n_win)
+    span = _SUM_NT * comb_chain(C, n_win)
+    step = max(1, _PLAIN_POINTS[scalars.device.type] // n)
+    out = []
+    for sc in scalars.split(step):
+        pts = comb_points(sc, table, curve)
+        if parts == 1:
+            out.append(row_sum_plain(pts, curve))
+            continue
+        r = sc.shape[0]
+        if parts * span > n:
+            tail = _inf_like(torch.empty(r, parts * span - n, 3, 8, device=sc.device),
+                             curve)
+            pts = torch.cat([pts, tail], 1)
+        part = row_sum_plain(pts.reshape(r * parts, span, 3, 8), curve)
+        out.append(row_sum_plain(part.reshape(r, parts, 3, 8), curve))
+    return torch.cat(out) if out else torch.empty(0, 3, 8, dtype=torch.int32,
+                                                  device=scalars.device)
 
 
 def comb_rows(scalars: torch.Tensor, table: torch.Tensor,
@@ -251,10 +307,13 @@ def comb_rows(scalars: torch.Tensor, table: torch.Tensor,
     if (scalars.shape != (R, C, 8) or table.dim() != 5
             or table.shape[1:] != (DIGITS, C, 3, 8)):
         raise ValueError("comb_rows: scalars (R, C, 8) and a (n_win, 64, C, 3, 8) table")
-    scratch = torch.empty(R, C, 3, 8, dtype=torch.int32, device=scalars.device)
+    n_win = table.shape[0]
+    parts = comb_parts(C, n_win)
+    scratch = torch.empty(R * parts if parts > 1 else 0, 3, 8, dtype=torch.int32,
+                          device=scalars.device)
     out = torch.empty(R, 3, 8, dtype=torch.int32, device=scalars.device)
     if R:
-        COMB.call("sp2_comb_rows", R, C, table.shape[0], scalars.data_ptr(),
+        COMB.call("sp2_comb_rows", R, C, n_win, comb_chain(C, n_win), scalars.data_ptr(),
                   table.data_ptr(), scratch.data_ptr(), out.data_ptr(),
                   curve_words(curve))
     return out

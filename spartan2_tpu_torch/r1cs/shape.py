@@ -26,8 +26,8 @@ from ..frontend.constraint_system import ConstraintSystem, SpartanCircuitAPI
 from ..pcs.hyrax import HyraxCommitment
 from ..sumcheck.device import DOT, eq_factors, eq_table, round_evals
 from ..transcript.transcript import Transcript
-from .sparse import (DeviceCSR, SparseMatrix, mont_values, spmv, spmv_batched,
-                     spmv_combine)
+from .sparse import (DeviceCSR, RowClasses, SparseMatrix, mont_values, spmv,
+                     spmv_batched, spmv_combine)
 
 DEFAULT_COMMITMENT_WIDTH = 2048  # reference lib.rs:63
 
@@ -189,8 +189,9 @@ class SplitR1CSShape:
     # device
     # ------------------------------------------------------------------
     def attach_device(self, device) -> None:
-        """Upload A, B, C, their transposes over num_cols rows, and the
-        prefix / suffix column slices used with a prep cache."""
+        """Upload A, B, C, their transposes over num_cols rows (with their
+        joint row classes), and the prefix / suffix column slices used with
+        a prep cache."""
         if self.dev is not None:
             return
         d = {"device": torch.device(device)}
@@ -203,6 +204,7 @@ class SplitR1CSShape:
             if 0 < lo < self.num_cols:
                 d[name + "_pre"] = DeviceCSR.build(M, device, col_max=lo, mvals=mv)
                 d[name + "_sfx"] = DeviceCSR.build(M, device, col_min=lo, mvals=mv)
+        d["t_classes"] = RowClasses.joint([d[n + "t"] for n in "ABC"])
         self.dev = d
 
     def _mats(self, suffix: str = "") -> list:
@@ -242,7 +244,7 @@ class SplitR1CSShape:
         round finishes wrote them (the JAX package's
         bind_and_prepare_poly_ABC_device)."""
         eq = eq_table(factors, self.field)
-        return spmv_combine(self._mats("t"), eq, r, self.field)
+        return spmv_combine(self._mats("t"), eq, r, self.field, self.dev["t_classes"])
 
     def evaluate_at(self, r_x: list[int], r_y: list[int]):
         """(eval_A, eval_B, eval_C) MLE evaluations at (r_x, r_y): eq

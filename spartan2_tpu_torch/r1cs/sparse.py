@@ -6,7 +6,9 @@ serves the verifier circuit's small shapes.  ``DeviceCSR``
 holds one matrix on a device: int32 row offsets and column indices and
 each coefficient in Montgomery form.  ``spmv``/``spmv_combine``/
 ``spmv_batched`` launch kernel 1 (csrc/spmv.cu) on CUDA tensors and run
-the plain version on CPU tensors.
+the plain version on CPU tensors.  ``RowClasses`` lists the rows too long
+for the kernel's thread per row, built once when a matrix goes to the
+device.
 """
 
 from __future__ import annotations
@@ -21,8 +23,14 @@ from ..field.constants import FieldSpec
 from ..field.limbs import ints_to_limbs_np
 from ..utils.cuda import SZ, CudaKernel, I, P, check_cuda, fe_words, field_words
 
-SPMV = CudaKernel("spmv", {"sp2_spmv": [I, I] + [P] * 12 + [I, P, P],
-                           "sp2_spmv_batched": [I, I, SZ] + [P] * 11 + [P, P]})
+_CSR_ARGS = [P, P, P, P, I, I]  # indptr, indices, vals, long rows, n_warp, n_block
+SPMV = CudaKernel("spmv", {"sp2_spmv": [I, I] + _CSR_ARGS * 3 + [P, P, P, I, P, P],
+                           "sp2_spmv_batched": [I, I, SZ] + _CSR_ARGS * 3 + [P, P, P]})
+
+# Row classes of csrc/spmv.cu: a row of at most SHORT_ROW_MAX entries takes a
+# thread, one of at most WARP_ROW_MAX a warp, a longer one a block.
+SHORT_ROW_MAX = 16
+WARP_ROW_MAX = 256
 
 
 @dataclass
@@ -98,6 +106,39 @@ def mont_values(m: SparseMatrix) -> np.ndarray:
 
 
 @dataclass
+class RowClasses:
+    """The long rows of a matrix (or of a row triple, each row's class
+    that of its longest): ``long_rows`` (int32) holds the rows of
+    SHORT_ROW_MAX + 1 to WARP_ROW_MAX entries ascending, then the longer
+    ones ascending; ``n_warp`` counts the first part.  Every other row is
+    short."""
+
+    long_rows: torch.Tensor
+    n_warp: int
+
+    @classmethod
+    def from_lengths(cls, lengths: np.ndarray, device) -> "RowClasses":
+        lengths = np.asarray(lengths)
+        warp = np.flatnonzero((lengths > SHORT_ROW_MAX) & (lengths <= WARP_ROW_MAX))
+        block = np.flatnonzero(lengths > WARP_ROW_MAX)
+        rows = np.concatenate([warp, block]).astype(np.int32)
+        return cls(torch.from_numpy(rows).to(device), len(warp))
+
+    @classmethod
+    def joint(cls, mats: list) -> "RowClasses":
+        """Classes of the row triples of ``spmv_combine``'s matrices."""
+        lengths = np.maximum.reduce([np.diff(m.indptr.cpu().numpy()) for m in mats])
+        return cls.from_lengths(lengths, mats[0].indptr.device)
+
+    @property
+    def n_block(self) -> int:
+        return self.long_rows.shape[0] - self.n_warp
+
+    def args(self) -> list:
+        return [self.long_rows.data_ptr(), self.n_warp, self.n_block]
+
+
+@dataclass
 class DeviceCSR:
     """One sparse matrix on a device, Montgomery coefficients."""
 
@@ -105,6 +146,7 @@ class DeviceCSR:
     indptr: torch.Tensor  # (rows + 1,) int32
     indices: torch.Tensor  # (nnz,) int32, columns of the full z
     vals: torch.Tensor  # (nnz, 8) int32 Montgomery
+    classes: RowClasses
 
     @classmethod
     def from_arrays(cls, rows_e: np.ndarray, cols_e: np.ndarray,
@@ -118,6 +160,7 @@ class DeviceCSR:
             indptr=torch.from_numpy(indptr).to(device),
             indices=torch.from_numpy(cols_e[order].astype(np.int32)).to(device),
             vals=torch.from_numpy(np.ascontiguousarray(vals[order])).to(device),
+            classes=RowClasses.from_lengths(counts, device),
         )
 
     @classmethod
@@ -173,14 +216,16 @@ def spmv_batched_plain(mats: list, z: torch.Tensor, spec: FieldSpec) -> torch.Te
 
 
 def _launch(mats: list, z: torch.Tensor, spec: FieldSpec, prefix, r: int,
-            combine: int, out: torch.Tensor) -> None:
+            combine: int, out: torch.Tensor, classes: RowClasses | None = None) -> None:
     rows = mats[0].rows
     if any(m.rows != rows for m in mats) or not 1 <= len(mats) <= 3:
         raise ValueError("spmv: 1 to 3 matrices with equal row counts")
+    if combine and (len(mats) != 3 or classes is None):
+        raise ValueError("spmv_combine: three matrices and their joint row classes")
     check_cuda(z, out, *(m.vals for m in mats),
                *([prefix] if prefix is not None else []))
-    check_cuda(*(t for m in mats for t in (m.indptr, m.indices)),
-               dtype=torch.int32)
+    check_cuda(*(t for m in mats for t in (m.indptr, m.indices, m.classes.long_rows)),
+               *([classes.long_rows] if classes is not None else []), dtype=torch.int32)
     if z.dim() not in (2, 3) or z.shape[-1] != 8:
         raise ValueError("spmv: z must be (n, 8) or (I, n, 8)")
     if prefix is not None and prefix.shape != (len(mats), rows, 8):
@@ -188,12 +233,13 @@ def _launch(mats: list, z: torch.Tensor, spec: FieldSpec, prefix, r: int,
     ptrs = []
     for k in range(3):
         m = mats[min(k, len(mats) - 1)]
-        ptrs += [m.indptr.data_ptr(), m.indices.data_ptr(), m.vals.data_ptr()]
+        ptrs += [m.indptr.data_ptr(), m.indices.data_ptr(), m.vals.data_ptr(),
+                 *(classes if combine else m.classes).args()]
     if z.dim() == 3:  # I instances, A, B and C
         if len(mats) != 3 or prefix is not None or combine:
             raise ValueError("spmv_batched: three matrices, no prefix")
         SPMV.call("sp2_spmv_batched", rows, z.shape[0], z.shape[1], *ptrs, z.data_ptr(),
-                  fe_words(0), out.data_ptr(), field_words(spec))
+                  out.data_ptr(), field_words(spec))
         return
     SPMV.call("sp2_spmv", rows, len(mats), *ptrs, z.data_ptr(),
               prefix.data_ptr() if prefix is not None else None,
@@ -213,15 +259,16 @@ def spmv(mats: list, z: torch.Tensor, spec: FieldSpec,
     return out
 
 
-def spmv_combine(mats: list, z: torch.Tensor, r: int,
-                 spec: FieldSpec) -> torch.Tensor:
-    """(rows, 8): M_0 z + r (M_1 z + r M_2 z) for a canonical scalar r."""
+def spmv_combine(mats: list, z: torch.Tensor, r: int, spec: FieldSpec,
+                 classes: RowClasses) -> torch.Tensor:
+    """(rows, 8): M_0 z + r (M_1 z + r M_2 z) for a canonical scalar r;
+    ``classes`` are the three matrices' joint row classes
+    (``RowClasses.joint``, made once)."""
     if z.device.type == "cpu":
         return spmv_combine_plain(mats, z, r, spec)
     out = torch.empty(mats[0].rows, 8, dtype=torch.int32, device=z.device)
-    _launch(mats, z, spec, None, r, 1, out)
+    _launch(mats, z, spec, None, r, 1, out, classes)
     return out
-
 
 
 def spmv_batched(mats: list, z: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
