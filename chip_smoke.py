@@ -14,6 +14,8 @@
    proves on SHA-256 over a 1 KiB preimage (P256HyraxEngine, Hyrax width
    2048, is_small=True), then verifies the proof, checks that a tampered
    public value is rejected and that the serialized proof is 94324 bytes.
+   Each timed prove must make two eq-table launches: one sp2_eq_tables
+   (the outer sum-check's 20 tables) and one sp2_eq_table (poly_ABC's).
 3. Drives SpartanZkSNARK on the same circuit, from the same synthesized
    shape (setup_from_shape): prep_prove, a warm-up prove and three timed
    proves, verify, a tampered proof rejected, the proof through serde and
@@ -33,7 +35,8 @@
    are set to 0 before its setup and read after its verify.  The traced
    ZK and NN proves print their verifier-circuit commits (vc_commit:
    calls and host ms).  Each profiled prove (steps 2-4) prints the device
-   time and launches of its SpMV and comb rows kernels.
+   time, launches and share of the prove's device time of its SpMV, comb
+   rows, kernel C / 5 (msm_rows_kernel) and eq-table kernels.
 5. Proves the cubic circuit on the card with both Spartan SNARKs, and
    the two NeutronNova test configurations, from the JAX package's
    recorded keys, prep state and seeds (tests/torch_golden/): each proof
@@ -58,7 +61,16 @@
    timed region), and computes each kernel's bound from the bytes, the
    32-bit multiply-adds and the Keccak logic operations this run's data
    needs.  The comb, MSM and Hyrax-bind kernels are also held against
-   their plain versions on the Pallas curve (a = 0).  Kernel 1 also runs
+   their plain versions on the Pallas curve (a = 0).  The eq table at
+   2^20 and the outer plan's 20 tables in one sp2_eq_tables launch, timed
+   by CUDA events and by the profiler's device time.  Kernels C and 5 at
+   the paths' shapes (R x I = 43 x 2, 15 x 16, and 256 points) on P-256
+   and Pallas, nbits 256 and 40, with zero scalars, q - 1, a repeated
+   point, a point beside its negation and a point at infinity, against
+   their plain version run on the host (the MSM's plain ladder is seconds
+   there and tens of seconds as launches on the card); then kernel C's
+   latency floor on P-256: 255 doublings in one thread (sp2_msm_per_lane,
+   n = 1, scalar 2^255) and kernel C's own chain at one point.  Kernel 1 also runs
    on three skewed matrices whose long rows take a warp and a block
    (spmv with a prefix, spmv_combine, spmv_batched), and kernel 3 also at
    the blinds' shape (16 rows over h's one-column table) and at one
@@ -120,8 +132,18 @@ IMAD_PER_MONT_MUL = 256
 # counted against IMAD_PER_S like a multiply-add.
 KECCAK_F_OPS = 24 * 180
 MONT_MULS_PER_ADD = 16  # complete Jacobian addition (csrc/comb.cu pt_add)
-MONT_MULS_PER_DBL = 10
 MONT_MULS_PER_MADD = 11  # complete mixed addition, affine second point (curve.cuh)
+
+
+def dbl_muls(curve) -> int:
+    """Montgomery products of one Jacobian doubling on ``curve``: 7 at
+    a = 0 (dbl-2009-l), 8 at a = -3 (dbl-2001-b), 10 at any other a
+    (dbl-1998-cmo-2), as csrc/curve.cuh's pt_dbl_k counts them."""
+    p = curve.base.modulus
+    a = curve.a % p
+    return 7 if a == 0 else 8 if a == p - 3 else 10
+
+
 PROOF_BYTES = 94324  # BENCH_r05.json proof_bytes (same wire format)
 
 
@@ -152,6 +174,19 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over reps runs, by torch.profiler:
+    the kernels' own time, without the host's enqueue (a launch of a few
+    microseconds' work is paced by its Python wrapper under CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
+
+
 def once_ms(fn):
     """(result, milliseconds) of one run of fn(), by CUDA events."""
     torch.cuda.synchronize()
@@ -162,6 +197,17 @@ def once_ms(fn):
     end.record()
     torch.cuda.synchronize()
     return res, start.elapsed_time(end)
+
+
+def host_plain(fn, *tensors):
+    """(result, host ms) of a plain version run on this machine's CPU on
+    copies of the card's inputs: the MSM's plain ladder is thousands of
+    small batched operations, seconds on the host and tens of seconds as
+    launches on the card.  The kernel's output is held against it exactly."""
+    cpu = [t.cpu() for t in tensors]
+    t0 = time.perf_counter()
+    res = fn(*cpu)
+    return res, (time.perf_counter() - t0) * 1e3
 
 
 def bound_ms(nbytes: float, mont_muls: float, int_ops: float = 0) -> tuple[float, str]:
@@ -248,20 +294,22 @@ def same_or_raise(name, got, want, spec) -> None:
     print(f"equal to plain: {name}", flush=True)
 
 
-def msm_point_ops(scalars: torch.Tensor, nw: int) -> float:
+def msm_point_ops(scalars: torch.Tensor, nw: int, curve) -> float:
     """Montgomery products that MSMs over (rows, I, 8) scalars of ``nw``
-    4-bit windows need: per point 13 additions and a doubling for its 16
-    multiples; per row and window one addition per nonzero digit but the
-    first; below the top window a row's ladder of 4 doublings and one
-    addition per window."""
+    4-bit windows on ``curve`` need: per point 3 doublings (2Q, 4Q, 8Q)
+    and 11 additions for its 16 multiples; per row and window one addition
+    per nonzero digit but the first; below the top window a row's ladder
+    of 4 doublings and one addition per window.  A doubling costs what the
+    curve's a lets it (``dbl_muls``)."""
     from spartan2_tpu_torch.ec.comb import scalar_digits
     from spartan2_tpu_torch.ec.msm import MSM_WINDOW_BITS
 
     rows, n = scalars.shape[:2]
     nzd = scalar_digits(scalars, nw, MSM_WINDOW_BITS) != 0  # (windows, rows, I)
-    return (rows * n * (13 * MONT_MULS_PER_ADD + MONT_MULS_PER_DBL)
+    dbl = dbl_muls(curve)
+    return (rows * n * (11 * MONT_MULS_PER_ADD + 3 * dbl)
             + int(nzd.sum() - nzd.any(2).sum()) * MONT_MULS_PER_ADD
-            + rows * (nw - 1) * (4 * MONT_MULS_PER_DBL + MONT_MULS_PER_ADD))
+            + rows * (nw - 1) * (4 * dbl + MONT_MULS_PER_ADD))
 
 
 def comb_bound_args(scalars: torch.Tensor, n_win: int) -> tuple:
@@ -331,6 +379,43 @@ def check_spmv_skewed(F, dev) -> list:
         same_or_raise(f"{name} on skewed matrices ({cls})", fn(), want, F)
         out.append(detail_record(f"{name}, skewed 2^18 rows, {nnz} entries ({cls})",
                                  cuda_ms(fn, 5), pms, nbytes, muls))
+    return out
+
+
+def check_eq_tables(F, fac: torch.Tensor, eq_pms: float, entries: dict) -> list:
+    """The eq table at 2^m from ``fac`` (held against its plain version by
+    the caller, in eq_pms ms) timed, and the outer sum-check's plan (its
+    20 tables at m = 20) in one sp2_eq_tables launch against eq_tables_plain
+    -> kernel records.  Bounds: 2^m elements written and one product each
+    (the doubling's need)."""
+    from spartan2_tpu_torch.sumcheck.device import (
+        eq_factors, eq_table, eq_tables, eq_tables_plain)
+    from spartan2_tpu_torch.sumcheck.prove import SumcheckProverCubicEq
+
+    m = fac.shape[0] // 2
+    n = 1 << m
+    out = [kernel_record(
+        "eq_table", "spartan2_tpu/polys/eq.py:79", entries.get("sp2_eq_table", 0),
+        NONZK_COUNTS.replace("wrapper calls", "sp2_eq_table entry calls"),
+        cuda_ms(lambda: eq_table(fac, F), 5), eq_pms, n * 32 + 2 * m * 32, n,
+        "spartan2_tpu_torch/csrc/sumcheck.cu")]
+    out[0]["device_ms"] = device_ms(lambda: eq_table(fac, F), 5)
+    rng = random.Random(17)
+    taus = [rng.randrange(F.modulus) for _ in range(m)]
+    keys = SumcheckProverCubicEq.table_keys(m)
+    ranges = sorted({k for pair in keys for k in pair if k is not None})
+    ms = [b - a for a, b in ranges]
+    tfac = torch.cat([eq_factors(taus[a:b], F, fac.device) for a, b in ranges])
+    want, tpms = once_ms(lambda: torch.cat(eq_tables_plain(tfac, ms, F)))
+    same_or_raise(f"eq_tables, the outer plan's {len(ms)} tables (m = {ms})",
+                  torch.cat(eq_tables(tfac, ms, F)), want, F)
+    tn = sum(1 << k for k in ms)
+    out.append(kernel_record(
+        "eq_tables", "spartan2_tpu/polys/eq.py:79", entries.get("sp2_eq_tables", 0),
+        NONZK_COUNTS.replace("wrapper calls", "sp2_eq_tables entry calls"),
+        cuda_ms(lambda: eq_tables(tfac, ms, F), 10), tpms, tn * 32 + 2 * sum(ms) * 32, tn,
+        "spartan2_tpu_torch/csrc/sumcheck.cu"))
+    out[1]["device_ms"] = device_ms(lambda: eq_tables(tfac, ms, F), 10)
     return out
 
 
@@ -414,7 +499,7 @@ def compare_kernels(pk, prep, proof, launches: dict):
     m = n.bit_length() - 1
     fac = eq_factors([random.Random(7 + j).randrange(F.modulus) for j in range(m)],
                      F, dev)
-    eq_pms = check("eq_table", eq_table(fac, F), lambda: eq_table_plain(fac, F))
+    eq_pms = check(f"eq_table 2^{m}", eq_table(fac, F), lambda: eq_table_plain(fac, F))
     vecs = [rand_field(n, F, gen, dev) for _ in range(4)]
     check("round_evals cubic", round_evals(CUBIC, n, vecs, F),
           lambda: round_evals_plain(CUBIC, n, vecs, F))
@@ -445,8 +530,7 @@ def compare_kernels(pk, prep, proof, launches: dict):
                   cuda_ms(outer_round(round_evals, bind), reps), pms,
                   4 * n * 32 + 4 * (n // 2) * 32, 10 * (n // 2))
     del copies
-    record_detail(f"eq_table 2^{m}", cuda_ms(lambda: eq_table(fac, F), 5), eq_pms,
-                  n * 32, n)
+    out.extend(check_eq_tables(F, fac, eq_pms, launches["sumcheck_entries"]))
     record_detail(f"round_evals quad 2^{m}",
                   cuda_ms(lambda: round_evals(QUAD, n, vecs[:2], F), 5), quad_pms,
                   2 * n * 32, n)
@@ -507,7 +591,7 @@ def compare_kernels(pk, prep, proof, launches: dict):
     record_detail(f"comb_build {nwf} windows x {C}",
                   cuda_ms(lambda: comb_build(gx, gy, nwf, curve), 2), pms,
                   2 * C * 32 + nwf * 64 * C * 96,
-                  C * (6 * (nwf - 1) * MONT_MULS_PER_DBL
+                  C * (6 * (nwf - 1) * dbl_muls(curve)
                        + nwf * 62 * MONT_MULS_PER_ADD))
     rows_pre = S.num_precommitted // S.width
     small = pk.ck.comb(SMALL_BITS)
@@ -538,11 +622,11 @@ def compare_kernels(pk, prep, proof, launches: dict):
                            for j in range(rows.bit_length() - 1)])
     sc = to_device(Lv, F, dev)
     pts = to_jacobian(comm_W.comm, curve, dev)
-    pms = check(f"msm {rows} points", msm(sc, pts, curve),
-                lambda: msm_plain(sc, pts, curve))
+    want, pms = host_plain(lambda s_, p_: msm_plain(s_, p_, curve), sc, pts)
+    same_or_raise(f"msm {rows} points", msm(sc, pts, curve).cpu(), want, F)
     record_kernel("msm", "spartan2_tpu/ec/device.py:398",
                   cuda_ms(lambda: msm(sc, pts, curve), 5), pms,
-                  rows * (32 + 96) + 96, msm_point_ops(sc[None], msm_windows(FULL_BITS)))
+                  rows * (32 + 96) + 96, msm_point_ops(sc[None], msm_windows(FULL_BITS), curve))
     return out, detail
 
 
@@ -691,10 +775,10 @@ def compare_zk_kernels(S, zk_proof, proof, zk_launches: dict):
         sc = w.expand(R, 2, 8).contiguous()
         pts = to_jacobian([pt for row in zip(*cs) for pt in row], curve,
                           dev).reshape(R, 2, 3, 8)
-        pms = plain_ms(f"msm_rows R={R} I=2", msm_rows(sc, pts, curve),
-                       lambda: msm_rows_plain(sc, pts, curve))
+        want, pms = host_plain(lambda s_, p_: msm_rows_plain(s_, p_, curve), sc, pts)
+        same_or_raise(f"msm_rows R={R} I=2", msm_rows(sc, pts, curve).cpu(), want, F)
         ms = cuda_ms(lambda: msm_rows(sc, pts, curve), reps)
-        nbytes, muls = R * 2 * (32 + 96) + R * 96, msm_point_ops(sc, nw)
+        nbytes, muls = R * 2 * (32 + 96) + R * 96, msm_point_ops(sc, nw, curve)
         if R == len(c_vc[0]):
             out.append(kernel_record(
                 "msm_rows", "spartan2_tpu/ec/device.py:424",
@@ -754,12 +838,18 @@ def kernel_group(name: str) -> str | None:
         return "spmv"
     if name.startswith("comb_") and not name.startswith("comb_build"):
         return "comb"
+    if name.startswith("msm_rows_kernel"):
+        return "msm"  # kernels C and 5
+    if name.startswith("eq_tables_kernel"):
+        return "eq"
     return None
 
 
-def print_redesigned(path: str, groups: dict) -> None:
-    print(f"{path} prove, SpMV and comb rows kernels (device ms, launches): "
-          f"{json.dumps(groups)}", flush=True)
+def print_redesigned(path: str, groups: dict, dev_ms: float) -> None:
+    share = {g: [ms, n, round(ms / dev_ms, 4)] for g, (ms, n) in groups.items()}
+    print(f"{path} prove, redesigned kernels: SpMV, comb rows, kernel C (msm) and eq "
+          f"tables (device ms, launches, share of the prove's {dev_ms:.4f} device ms): "
+          f"{json.dumps(share)}", flush=True)
 
 
 def profiled_device_ms(fn) -> tuple[float, float, list, dict]:
@@ -816,15 +906,24 @@ def run_spartan(engine, circuit, dev, kernels):
     phases["warmup_prove_s"] = time.perf_counter() - t0
     first_blob = spartan_proof_to_bytes(proof, engine)  # the mesh phase's reference
     timed = []
+    sumcheck = kernels[1]
     for i in range(2):
         before = {k.name: k.launches for k in kernels}
+        before_e = dict(sumcheck.entry_launches)
         t0 = time.perf_counter()
         proof, prep = SpartanSNARK.prove(pk, circuit, prep, is_small=True,
                                          rng=det(3 + i))
         torch.cuda.synchronize()
         timed.append(time.perf_counter() - t0)
         per_prove = {k.name: k.launches - before[k.name] for k in kernels}
+        eq_prove = {e: sumcheck.entry_launches.get(e, 0) - before_e.get(e, 0)
+                    for e in ("sp2_eq_tables", "sp2_eq_table")}
     phases["prove_s"] = timed
+    # the outer sum-check's eq tables in one launch; prepare_poly_ABC's own
+    if eq_prove != {"sp2_eq_tables": 1, "sp2_eq_table": 1}:
+        raise RuntimeError(f"eq-table launches a SpartanSNARK prove: {eq_prove}")
+    print(f"eq-table launches a SpartanSNARK prove: {json.dumps(eq_prove)} (the outer "
+          "sum-check's 20 tables in one sp2_eq_tables launch)", flush=True)
     with record() as spans_verify:
         t0 = time.perf_counter()
         if SpartanSNARK.verify(proof, vk) != circuit.public_values():
@@ -862,7 +961,7 @@ def run_spartan(engine, circuit, dev, kernels):
         lambda: SpartanSNARK.prove(pk, circuit, prep, is_small=True, rng=det(7)))
     phases["profiled_prove_s"], phases["profiled_prove_device_ms"] = wall, dev_ms
     print("prove device time by kernel (ms, launches): " + json.dumps(top), flush=True)
-    print_redesigned("SpartanSNARK", groups)
+    print_redesigned("SpartanSNARK", groups, dev_ms)
     print("phases: " + json.dumps(phases), flush=True)
     for title, sp in (("setup", spans_setup), ("prep", spans_prep),
                       ("prove (traced)", spans), ("verify", spans_verify)):
@@ -871,6 +970,7 @@ def run_spartan(engine, circuit, dev, kernels):
     print(f"launches per prove: {json.dumps(per_prove)}; main path: "
           f"{json.dumps(launches)}; by entry: "
           f"{json.dumps({k.name: k.entry_launches for k in kernels})}", flush=True)
+    launches["sumcheck_entries"] = dict(sumcheck.entry_launches)
     return pk, prep, proof, launches, first_blob
 
 
@@ -955,7 +1055,7 @@ def run_spartan_zk(engine, S, circuit, dev, kernels):
         lambda: SpartanZkSNARK.prove(pk, circuit, prep, is_small=True, rng=det(17)))
     phases["profiled_prove_s"], phases["profiled_prove_device_ms"] = wall, dev_ms
     print("ZK prove device time by kernel (ms, launches): " + json.dumps(top), flush=True)
-    print_redesigned("ZK", groups)
+    print_redesigned("ZK", groups, dev_ms)
     print("ZK phases: " + json.dumps(phases), flush=True)
     print("ZK setup spans ms: " + json.dumps(spans_by_name(spans_setup)), flush=True)
     print("ZK prove (traced) spans [calls, ms]: " + json.dumps(spans_by_name(spans)),
@@ -1111,7 +1211,7 @@ def run_neutronnova(engine, dev, kernels):
     phases["profiled_prove_idle_share"] = 1 - dev_ms / 1e3 / wall
     phases["proof_bytes"] = len(blob)
     print("NN prove device time by kernel (ms, launches): " + json.dumps(top), flush=True)
-    print_redesigned("NN", groups)
+    print_redesigned("NN", groups, dev_ms)
     print("NN phases: " + json.dumps(phases), flush=True)
     print("NN setup spans ms: " + json.dumps(spans_by_name(spans_setup)), flush=True)
     print("NN prep spans ms: " + json.dumps(spans_by_name(spans_prep)), flush=True)
@@ -1272,13 +1372,13 @@ def compare_nn_kernels(pk, prep, proof, nn_launches: dict):
     sc = to_device(wts, F, dev).expand(R, I, 8).contiguous()
     pts = to_jacobian([rows[i][r] for r in range(R) for i in range(I)], curve,
                       dev).reshape(R, I, 3, 8)
-    pms = plain_ms(f"msm_rows R={R} I={I}", msm_rows(sc, pts, curve),
-                   lambda: msm_rows_plain(sc, pts, curve))
+    want, pms = host_plain(lambda s_, p_: msm_rows_plain(s_, p_, curve), sc, pts)
+    same_or_raise(f"msm_rows R={R} I={I}", msm_rows(sc, pts, curve).cpu(), want, F)
     record("msm_rows_nn", "spartan2_tpu/ec/device.py:424",
            nn_launches["msm"].get("sp2_msm_rows", 0),
            "sp2_msm_rows entry calls (the folds of the step commitments in prove "
            "and verify)", cuda_ms(lambda: msm_rows(sc, pts, curve), reps), pms,
-           R * I * (32 + 96) + R * 96, msm_point_ops(sc, msm_windows(FULL_BITS)),
+           R * I * (32 + 96) + R * 96, msm_point_ops(sc, msm_windows(FULL_BITS), curve),
            "spartan2_tpu_torch/csrc/msm.cu")
     return out, detail
 
@@ -1639,7 +1739,7 @@ def check_pallas(dev) -> list:
     -> detail records."""
     from spartan2_tpu_torch.ec.comb import (comb_build, comb_build_plain, comb_rows,
                                             comb_rows_plain, n_windows, to_affine)
-    from spartan2_tpu_torch.ec.msm import msm, msm_plain, to_jacobian
+    from spartan2_tpu_torch.ec.msm import msm, msm_plain, msm_windows, to_jacobian
     from spartan2_tpu_torch.field.limbs import to_device
     from spartan2_tpu_torch.pcs.hyrax import FULL_BITS, hyrax_bind, hyrax_bind_plain
     from spartan2_tpu_torch.provider.engines import get_engine
@@ -1662,20 +1762,141 @@ def check_pallas(dev) -> list:
                   comb_rows(sc, table, curve), want, F)
     pts = to_jacobian(to_affine(comb_rows(sc, table, curve), curve), curve, dev)
     ms_sc = rand_field(16, F, gen, dev)
-    want, mms = once_ms(lambda: msm_plain(ms_sc, pts, curve))
-    same_or_raise("msm on Pallas (16 points)", msm(ms_sc, pts, curve), want, F)
+    want, mms = host_plain(lambda s_, p_: msm_plain(s_, p_, curve), ms_sc, pts)
+    same_or_raise("msm on Pallas (16 points)", msm(ms_sc, pts, curve).cpu(), want, F)
     L = rand_field(256, F, gen, dev)
     poly = rand_field(256 * C, F, gen, dev).reshape(256, C, 8)
     want, hms = once_ms(lambda: hyrax_bind_plain(L, poly, F))
     same_or_raise("hyrax_bind over Pallas's scalar field (256 x 64)",
                   hyrax_bind(L, poly, F), want, F)
-    for name, fn, pm in (
-            ("Pallas comb_build 43 x 64", lambda: comb_build(gx, gy, nw, curve), pms),
-            ("Pallas comb_rows 16 x 64", lambda: comb_rows(sc, table, curve), rms),
-            ("Pallas msm 16 points", lambda: msm(ms_sc, pts, curve), mms),
-            ("Pallas hyrax_bind 256 x 64", lambda: hyrax_bind(L, poly, F), hms)):
-        detail.append({"name": name, "ms": cuda_ms(fn, 3), "plain_ms": pm})
+    # bounds as the P-256 rows count them: comb_build's doublings and
+    # additions, the comb rows' additions of nonzero digits, the MSM's
+    # products, the bind's products
+    for name, fn, pm, (nbytes, muls) in (
+            ("Pallas comb_build 43 x 64", lambda: comb_build(gx, gy, nw, curve), pms,
+             (2 * C * 32 + nw * 64 * C * 96,
+              C * (6 * (nw - 1) * dbl_muls(curve) + nw * 62 * MONT_MULS_PER_ADD))),
+            ("Pallas comb_rows 16 x 64", lambda: comb_rows(sc, table, curve), rms,
+             comb_bound_args(sc, nw)),
+            ("Pallas msm 16 points", lambda: msm(ms_sc, pts, curve), mms,
+             (16 * (32 + 96) + 96, msm_point_ops(ms_sc[None], msm_windows(FULL_BITS), curve))),
+            ("Pallas hyrax_bind 256 x 64", lambda: hyrax_bind(L, poly, F), hms,
+             (256 * C * 32 + 256 * 32 + C * 32, 256 * C + C))):
+        detail.append(detail_record(name, cuda_ms(fn, 3), pm, nbytes, muls))
     return detail
+
+
+MSM_SHAPES = ((43, 2), (15, 16), (1, 256))  # ZK verify's fold, NN's folds, kernel 5
+
+
+def _msm_case(curve, R: int, I: int, nbits: int, seed: int, dev):
+    """(scalars (R, I, 8), points (R, I, 3, 8)) on the card: multiples of
+    the generator and scalars below 2^nbits (below q), with the edge cases:
+    zero scalars, q - 1, a point repeated with its scalar (the window
+    sums' doubling case), a point beside its negation (their identity
+    case), a point at infinity; rows of their own where R > 4, else inside
+    the one row."""
+    from spartan2_tpu_torch.ec.msm import to_jacobian
+    from spartan2_tpu_torch.field.limbs import to_device
+
+    q = curve.scalar.modulus
+    rnd = random.Random(seed)
+    top = min(1 << nbits, q)
+    sc = [[rnd.randrange(top) for _ in range(I)] for _ in range(R)]
+    pts = [[curve.scalar_mul(rnd.randrange(1, q), curve.generator) for _ in range(I)]
+           for _ in range(R)]
+
+    def neg(pt):
+        return (pt[0], (-pt[1]) % curve.base.modulus)
+
+    if R > 4:
+        sc[0] = [0] * I
+        sc[1] = [(q - 1) % top] * I
+        pts[2][1], sc[2][1] = pts[2][0], sc[2][0]
+        pts[3][1], sc[3][1] = neg(pts[3][0]), sc[3][0]
+        pts[4][0] = None
+    else:
+        row, p_ = sc[0], pts[0]
+        row[0:2] = [0, 0]
+        row[2] = (q - 1) % top
+        p_[5], row[5] = p_[4], row[4]
+        p_[7], row[7] = neg(p_[6]), row[6]
+        p_[8] = None
+    scal = to_device([v for row in sc for v in row], curve.scalar, dev).reshape(R, I, 8)
+    jac = to_jacobian([pt for row in pts for pt in row], curve, dev).reshape(R, I, 3, 8)
+    return scal, jac
+
+
+def check_msm(dev, probe) -> tuple[list, dict]:
+    """Kernels C and 5 at the main paths' shapes (R x I = 43 x 2, 15 x 16
+    and kernel 5's 256 points) on P-256 and Pallas (a = 0), nbits 256 and
+    40, with the edge cases of ``_msm_case``: each equal to its plain
+    version (run on the host) limb for limb and timed; then, on P-256,
+    kernel C's latency floor: 255 doublings in sequence, each the ladder's
+    quad doubling timed alone by ``probe`` (tools/curve_latency.py
+    DBL_CHAIN, held against the plain doublings).  Beside it, for
+    reference and not as floors: one thread's 255 doublings of the old
+    group law (sp2_msm_per_lane, n = 1, scalar 2^255) and kernel C's own
+    time at one point (R = I = 1, scalar 2^255) -> (detail records,
+    floors)."""
+    from spartan2_tpu_torch.ec.comb import pt_dbl_n
+    from tools.curve_latency import dbl_chain, dbl_chain_floor_ms
+    from spartan2_tpu_torch.ec.curve import get_curve
+    from spartan2_tpu_torch.ec.msm import (
+        msm, msm_plain, msm_points_per_lane, msm_points_per_lane_plain, msm_rows,
+        msm_rows_plain, msm_windows, to_jacobian)
+    from spartan2_tpu_torch.field.limbs import to_device
+
+    detail = []
+    for cname in ("p256", "pallas"):
+        curve = get_curve(cname)
+        F = curve.base
+        for R, I in MSM_SHAPES:
+            for nbits in (256, 40):
+                sc, pts = _msm_case(curve, R, I, nbits, 1000 * R + I + nbits, dev)
+                name = f"{'msm' if R == 1 else 'msm_rows'} {cname} R={R} I={I} nbits {nbits}"
+                if R == 1:
+                    fn = lambda: msm(sc[0], pts[0], curve, nbits)  # noqa: E731
+                    want, pms = host_plain(lambda s_, p_: msm_plain(s_, p_, curve, nbits),
+                                           sc[0], pts[0])
+                else:
+                    fn = lambda: msm_rows(sc, pts, curve, nbits)  # noqa: E731
+                    want, pms = host_plain(
+                        lambda s_, p_: msm_rows_plain(s_, p_, curve, nbits), sc, pts)
+                same_or_raise(f"{name} (edge cases)", fn().cpu(), want, F)
+                if nbits == 256:
+                    detail.append(detail_record(
+                        name, cuda_ms(fn, 5), pms, R * I * (32 + 96) + R * 96,
+                        msm_point_ops(sc, msm_windows(nbits), curve)))
+    curve = get_curve("p256")
+    F = curve.base
+    G = curve.generator
+    s255 = to_device([1 << 255], curve.scalar, dev)
+    qx, qy = (to_device([c], F, dev, mont=True) for c in G)
+    lane = lambda: msm_points_per_lane(s255, qx, qy, curve)  # noqa: E731
+    want, _ = host_plain(lambda s_, x_, y_: msm_points_per_lane_plain(s_, x_, y_, curve),
+                         s255, qx, qy)
+    same_or_raise("msm_points_per_lane n = 1, scalar 2^255", lane().cpu(), want, F)
+    lane_ms = cuda_ms(lane, 5)
+    P1 = to_jacobian([G], curve, dev).reshape(1, 1, 3, 8)
+    one = lambda: msm_rows(s255.reshape(1, 1, 8), P1, curve)  # noqa: E731
+    want, _ = host_plain(lambda s_, p_: msm_rows_plain(s_, p_, curve), s255.reshape(1, 1, 8),
+                         P1)
+    same_or_raise("msm_rows R = I = 1, scalar 2^255", one().cpu(), want, F)
+    one_point_ms = cuda_ms(one, 5)
+    want = pt_dbl_n(P1.reshape(3, 8).cpu(), 255, curve)
+    same_or_raise("ladder doubling chain (255 quad doublings)",
+                  dbl_chain(probe, P1.reshape(3, 8), 255, curve).cpu(), want, F)
+    floor_ms, dbl_us = dbl_chain_floor_ms(probe, P1.reshape(3, 8), curve)
+    floors = {"latency_floor_ms": floor_ms, "dbl_us": dbl_us, "old_dbl_us": lane_ms * 1e3 / 256,
+              "old_lane_ms": lane_ms, "one_point_ms": one_point_ms}
+    print(f"kernel C latency floor (P-256): 255 ladder doublings in sequence {floor_ms:.4f} "
+          f"ms ({dbl_us:.3f} us a doubling, timed alone); for reference, not floors: one "
+          f"thread's 255 doublings and an addition (sp2_msm_per_lane, old group law) "
+          f"{lane_ms:.4f} ms ({floors['old_dbl_us']:.3f} us a doubling), kernel C at one "
+          f"point (scalar 2^255) {one_point_ms:.4f} ms", flush=True)
+    return detail, floors
+
 
 
 def build_host_c() -> float:
@@ -1908,13 +2129,13 @@ def check_curve(dev) -> tuple:
             "msm_points_per_lane": (
                 lambda: msm_points_per_lane(inp["sc_full"], qx, qy, c),
                 CURVE_N * (32 + 64 + 96),
-                sum(max(v.bit_length() - 1, 0) * MONT_MULS_PER_DBL
+                sum(max(v.bit_length() - 1, 0) * dbl_muls(c)
                     + max(bin(v).count("1") - 1, 0) * MONT_MULS_PER_MADD
                     for v in inp["full"])),
             "scalar_mul_host_base": (
                 lambda: scalar_mul_host_base(k, qx, qy, c),
                 CURVE_N * (64 + 96) + 32,
-                CURVE_N * ((k.bit_length() - 1) * MONT_MULS_PER_DBL
+                CURVE_N * ((k.bit_length() - 1) * dbl_muls(c)
                            + (bin(k).count("1") - 1) * MONT_MULS_PER_MADD)),
             "mle_evaluate_device": (
                 lambda: mle_evaluate_device(inp["table"], inp["r"], F),
@@ -2326,13 +2547,15 @@ def main() -> int:
         return 1
     from spartan2_tpu_torch.provider.engines import get_engine
     from spartan2_tpu_torch.utils.cuda import build_all
+    from tools.curve_latency import dbl_chain_probe
 
     card = card_line()
     print(f"card: {card}", flush=True)
     kernels = _path_kernels()
     spartan_kernels = kernels[:-1]  # all but NIFS
-    print(f"build: {build_all(kernels):.1f} s (nvcc, {len(kernels)} sources in "
-          "parallel)", flush=True)
+    probe = dbl_chain_probe()
+    print(f"build: {build_all([*kernels, probe]):.1f} s (nvcc, {len(kernels) + 1} sources "
+          "in parallel: the kernels and the ladder doubling's probe)", flush=True)
     print(f"host C build: {build_host_c():.2f} s (cc: native/keccak.c, "
           "native/ec_host.c)", flush=True)
     h_detail = check_host_curve()
@@ -2358,11 +2581,16 @@ def main() -> int:
     zk_out, zk_detail = compare_zk_kernels(pk.S, zk_proof, proof, zk_launches)
     nn_out, nn_detail = compare_nn_kernels(nn_pk, nn_prep, nn_proof, nn_launches)
     p_detail = check_pallas(dev)
+    msm_detail, floors = check_msm(dev, probe)
+    for rec in out + zk_out + nn_out:
+        if rec["name"] in ("msm", "msm_rows", "msm_rows_nn"):
+            # 255 doublings in sequence: the floor of any shape's chain
+            rec["latency_floor_ms"] = floors["latency_floor_ms"]
     f_out, f_detail = check_curve(dev)
     m_out, m_detail = run_mesh(pk, prep, nn_pk, {"spartan": blob, "nn": nn_blob})
     print("kernel details (ms, bound_ms): " + json.dumps(
-        detail + zk_detail + nn_detail + t_detail + s_detail + p_detail + f_detail
-        + m_detail + h_detail), flush=True)
+        detail + zk_detail + nn_detail + t_detail + s_detail + p_detail + msm_detail
+        + f_detail + m_detail + h_detail), flush=True)
     print(json.dumps({"kernels": out + zk_out + nn_out + t_out + s_out + f_out + m_out}),
           flush=True)
     print(card, flush=True)

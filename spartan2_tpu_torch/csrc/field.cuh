@@ -13,6 +13,11 @@
 //
 // Cost: one product is 64 + 64 32x32->64 partial products (CIOS); the
 // kernels that use it are bound by these multiply-adds, not by bytes.
+// fe_mul_cc, fe_add_cc and fe_sub_cc compute the same values on PTX carry
+// chains, with fewer instructions on a dependent chain (one thread on the
+// H100: 0.50 against 0.92 us a product, 0.038 against 0.089 us an
+// addition, tools/curve_latency.py); the windowed MSM and the eq tables,
+// latency-bound, use them.
 // The plain PyTorch version is spartan2_tpu_torch/field/ops.py.
 #pragma once
 
@@ -185,6 +190,149 @@ __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b, const Field& F) {
     t[8] = t[9] + (uint32_t)(s >> 32);
   }
   return fe_reduce_once(t, t[8], F);
+}
+
+// PTX carry chains: the carry flag links consecutive calls (.cc sets it,
+// madc/addc consume it).  No other instruction touches the flag.
+__device__ __forceinline__ uint32_t cc_mad_lo(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t cc_madc_lo(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t cc_madc_hi(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t cc_add(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t cc_addc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t cc_addc_end(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t cc_sub(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t cc_subc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t cc_subc_end(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// t + carry * 2^256 < 2p -> (t + carry * 2^256) mod p, as fe_reduce_once,
+// the subtract on one borrow chain.
+__device__ __forceinline__ Fe fe_reduce_cc(const uint32_t t[8], uint32_t carry,
+                                           const Field& F) {
+  uint32_t d[8];
+  d[0] = cc_sub(t[0], F.p[0]);
+#pragma unroll
+  for (int i = 1; i < 8; ++i) d[i] = cc_subc(t[i], F.p[i]);
+  const uint32_t borrow = cc_subc_end(0, 0);  // 0 or 0xFFFFFFFF
+  const bool take = carry != 0 || borrow == 0;
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.v[i] = take ? d[i] : t[i];
+  return r;
+}
+
+// a + b and a - b mod p, as fe_add and fe_sub, on carry chains (the MSM's
+// group law, beside fe_mul_cc).
+__device__ __forceinline__ Fe fe_add_cc(const Fe& a, const Fe& b, const Field& F) {
+  uint32_t t[8];
+  t[0] = cc_add(a.v[0], b.v[0]);
+#pragma unroll
+  for (int i = 1; i < 8; ++i) t[i] = cc_addc(a.v[i], b.v[i]);
+  return fe_reduce_cc(t, cc_addc_end(0, 0), F);
+}
+
+__device__ __forceinline__ Fe fe_sub_cc(const Fe& a, const Fe& b, const Field& F) {
+  uint32_t t[8];
+  t[0] = cc_sub(a.v[0], b.v[0]);
+#pragma unroll
+  for (int i = 1; i < 8; ++i) t[i] = cc_subc(a.v[i], b.v[i]);
+  const uint32_t mask = cc_subc_end(0, 0);  // a < b: add p back (mod 2^256)
+  Fe r;
+  r.v[0] = cc_add(t[0], F.p[0] & mask);
+#pragma unroll
+  for (int i = 1; i < 7; ++i) r.v[i] = cc_addc(t[i], F.p[i] & mask);
+  r.v[7] = cc_addc_end(t[7], F.p[7] & mask);
+  return r;
+}
+
+// x[0..8] += sum over even j of a[j] * b * 2^(32 j): the 64-bit products
+// of even limbs do not overlap, so one carry chain adds them all.
+__device__ __forceinline__ void cc_add_even(uint32_t x[9], const uint32_t a[8], uint32_t b) {
+  x[0] = cc_mad_lo(a[0], b, x[0]);
+  x[1] = cc_madc_hi(a[0], b, x[1]);
+#pragma unroll
+  for (int j = 2; j < 8; j += 2) {
+    x[j] = cc_madc_lo(a[j], b, x[j]);
+    x[j + 1] = cc_madc_hi(a[j], b, x[j + 1]);
+  }
+  x[8] = cc_addc_end(x[8], 0);
+}
+
+// Montgomery product a * b * 2^-256 mod p, as fe_mul computes it (the same
+// canonical value), on PTX carry chains.  CIOS, each word b_i a row: T += a
+// b_i; m = T_0 n0; T += m p; T /= 2^32.  The even limbs' products go into
+// t by one carry chain, the odd limbs' into u (one word lower) by plain
+// multiplies and one chain of their own, so two independent chains run
+// beside each other; the row ends by merging u into t >> 32.  Bounds: T <
+// 2p at a row's start (t[8] <= 1), at most 4 * 2^256 inside it (t[8] <=
+// 3), u < 2 * 2^256.  Used by the MSM (msm.cu) and eq-table (sumcheck.cu)
+// kernels; every other kernel keeps fe_mul.
+__device__ __forceinline__ Fe fe_mul_cc(const Fe& a, const Fe& b, const Field& F) {
+  uint32_t t[9], u[9];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t bi = b.v[i];
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {  // odd limbs' products, one word lower
+      u[j] = a.v[j + 1] * bi;
+      u[j + 1] = __umulhi(a.v[j + 1], bi);
+    }
+    u[8] = 0;
+    cc_add_even(t, a.v, bi);
+    const uint32_t m = t[0] * F.n0;
+    cc_add_even(t, F.p, m);
+    u[0] = cc_mad_lo(F.p[1], m, u[0]);
+    u[1] = cc_madc_hi(F.p[1], m, u[1]);
+#pragma unroll
+    for (int j = 2; j < 8; j += 2) {
+      u[j] = cc_madc_lo(F.p[j + 1], m, u[j]);
+      u[j + 1] = cc_madc_hi(F.p[j + 1], m, u[j + 1]);
+    }
+    u[8] = cc_addc_end(0, 0);
+    // T / 2^32 = t[1..8] + u[0..8] (t[0] is 0)
+    t[0] = cc_add(t[1], u[0]);
+#pragma unroll
+    for (int j = 1; j < 8; ++j) t[j] = cc_addc(t[j + 1], u[j]);
+    t[8] = cc_addc_end(u[8], 0);
+  }
+  return fe_reduce_cc(t, t[8], F);
 }
 
 __device__ __forceinline__ Fe fe_from_mont(const Fe& a, const Field& F) {

@@ -10,22 +10,33 @@
 // commitments row by row in the NIFS verifier (kernel C, R rows).  The
 // points come from a proof, so every addition is complete (curve.cuh).
 //
-// Entry sp2_msm_rows (sp2_msm is its one-row case), three launches on
-// one stream:
-//   msm_table_kernel   one thread per point i of the R * I: T[d][i] =
-//                      d * Q_i for d in [0, 16), layout (16, R * I, 3, 8).
-//   msm_window_kernel  one block per (4-bit window k, row r): thread t
-//                      adds T[digit_k(s_ri)][r I + i] for i = t, t + 128,
-//                      ... in order, then a halving tree -> S[r][k],
-//                      (R, n_win, 3, 8).
-//   msm_horner_kernel  one thread per row: acc = 16 * acc + S[r][k] from
-//                      the top window down -> out[r], (R, 3, 8).
-// Scalars are canonical (R * I, 8); points Jacobian Montgomery
-// (R * I, 3, 8), row-major.
+// Entry sp2_msm_rows (sp2_msm is its one-row case): one launch,
+// msm_rows_kernel, a block per (group of GP <= 8 consecutive points, row),
+// the table, the window sums and the ladder in shared memory (the kernel's
+// comment has the steps).  Scalars are canonical (R * I, 8), below
+// 2^(4 n_win); points Jacobian Montgomery (R * I, 3, 8), row-major; out (R,
+// 3, 8).  Scratch from the wrapper: part (R, ng, NW, 3, 8), the blocks'
+// window sums, and counters (R, levels, ng) int32, zeroed.  The Jacobian
+// output is a function of this order (ec/msm.py msm_rows_plain repeats it):
+// the window sums are the adjacent-pair tree over the row's points padded
+// with the identity to a power of two, whatever the blocks, and the ladder
+// the adjacent-pair tree over the windows padded to NW = 2^lw.
 //
-// Bound: point additions (about 16 Montgomery products each), not bytes;
-// the Horner ladder (4 doublings and an add per window, one thread per
-// row) is the serial tail.
+// Bounds.  Throughput: about 16 Montgomery products per point addition, 8 a
+// doubling at a = -3 and 7 at a = 0, microseconds of work at these
+// shapes.  Latency: a 256-bit scalar of a point known only at run time needs
+// 255 doublings in sequence (P-256 has no endomorphism), so 255 times one
+// doubling's latency is the floor (chip_smoke.py times the ladder's
+// doubling alone, tools/curve_latency.py DBL_CHAIN), and at R <= 43 rows
+// the card is nearly idle.  The design keeps only the doublings serial: the
+// table in four steps, the window sums log2 I levels deep over all the
+// row's threads, the ladder a tree over the windows (252 doublings and 6
+// additions, not 63 Horner additions); the longest chain is 255 doublings
+// and 7 + log2 I additions, 15 at I = 256.  The group law is curve.cuh's
+// pt_dbl_k / pt_add_k on the carry-chain field arithmetic (fe_mul_cc,
+// fe_add_cc, fe_sub_cc), the doubling specialised to a = -3 (8 products)
+// and a = 0 (7), the ladder's doublings by quads of lanes, 3 products deep
+// (pt_dbl_quad_n).
 //
 // Entries sp2_msm_binary, sp2_msm_per_lane and sp2_scalar_mul_base: the
 // JAX package's DeviceCurve.msm_binary (ec/device.py:445, _msm_binary_jit
@@ -57,46 +68,143 @@ using namespace sp2;
 
 constexpr int MSM_WIN = 4;
 constexpr int MSM_DIGITS = 1 << MSM_WIN;
+constexpr int MSM_NT = 256;       // threads a block at most: NW * GP
+constexpr int MSM_GROUP_MAX = 8;  // points of a row a block takes at most
+using MsmOps = OpsCC;             // the field arithmetic of the MSM's group law
 
-__global__ void msm_table_kernel(int n, const uint32_t* pts, uint32_t* table,
-                                 Curve C) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Pt Q = pt_load(pts, i);
-  pt_store(table, i, pt_inf(C.F));
-  pt_store(table, (size_t)n + i, Q);
-  Pt acc = Q;
-  for (int d = 2; d < MSM_DIGITS; ++d) {
-    acc = pt_add(acc, Q, C);
-    pt_store(table, (size_t)d * n + i, acc);
-  }
+// A point another block wrote: loads that skip this SM's L1.
+__device__ __forceinline__ Fe fe_load_cg(const uint32_t* base, size_t i) {
+  const uint4* q = reinterpret_cast<const uint4*>(base + 8 * i);
+  const uint4 a = __ldcg(q), b = __ldcg(q + 1);
+  Fe r;
+  r.v[0] = a.x; r.v[1] = a.y; r.v[2] = a.z; r.v[3] = a.w;
+  r.v[4] = b.x; r.v[5] = b.y; r.v[6] = b.z; r.v[7] = b.w;
+  return r;
 }
 
-__global__ void msm_window_kernel(int npts, int n_win, const uint32_t* scalars,
-                                  const uint32_t* table, uint32_t* sums, Curve C) {
-  const int k = blockIdx.x, r = blockIdx.y;
-  const int n = npts * gridDim.y;  // points of all rows
-  const int bit = MSM_WIN * k;  // a window never straddles two limbs
-  Pt acc = pt_inf(C.F);
-  for (int i = r * npts + threadIdx.x; i < (r + 1) * npts; i += SUM_NT) {
-    const uint32_t limb = scalars[8 * (size_t)i + (bit >> 5)];
-    const int d = (int)((limb >> (bit & 31)) & (MSM_DIGITS - 1));
-    if (d) acc = pt_add(acc, pt_load(table, (size_t)d * n + i), C);
-  }
-  acc = block_pt_sum(acc, C);
-  if (threadIdx.x == 0) pt_store(sums, (size_t)r * n_win + k, acc);
+__device__ __forceinline__ Pt pt_load_cg(const uint32_t* base, size_t i) {
+  Pt p;
+  p.X = fe_load_cg(base, 3 * i);
+  p.Y = fe_load_cg(base, 3 * i + 1);
+  p.Z = fe_load_cg(base, 3 * i + 2);
+  return p;
 }
 
-__global__ void msm_horner_kernel(int rows, int n_win, const uint32_t* sums,
-                                  uint32_t* out, Curve C) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  Pt acc = pt_inf(C.F);
-  for (int k = n_win - 1; k >= 0; --k) {
-    for (int j = 0; j < MSM_WIN; ++j) acc = pt_dbl(acc, C);
-    acc = pt_add(acc, pt_load(sums, (size_t)r * n_win + k), C);
+// One launch: block (g, r) takes points [g GP, g GP + GP) of row r (GP =
+// 2^lg), NW = 2^lw >= n_win windows, NW * GP threads rounded up to whole
+// warps.
+//   table   T[d][j] = d Q_j for d in 1..15, in four dependent steps over
+//           the block's threads: 2Q = dbl Q; 3Q = 2Q + Q, 4Q = dbl 2Q; 5Q..7Q
+//           = 4Q + (Q..3Q), 8Q = dbl 4Q; 9Q..15Q = 8Q + (Q..7Q).
+//   leaves  thread (k, j) holds T[digit_k(s_j)][j], the identity for a zero
+//           digit, a window k >= n_win or a point past the row's end.
+//   tree    adjacent pairs over the block's GP points (lg levels), then over
+//           the row's ng blocks (levels): at each level the block that
+//           arrives second (an atomic counter a node) adds its sibling's
+//           sums (left + right), the other exits; a node without a sibling
+//           passes up.  The row's window sums S_k end in one block.
+//   ladder  adjacent pairs over the windows, P_j = P_2j + 2^(4 2^l) P_2j+1
+//           at level l (lw levels), the doublings by a quad of lanes
+//           (curve.cuh pt_dbl_quad_n: 3 products deep).
+// Longest chain at n_win = 64: 3 doublings and an addition (table), log2
+// I additions (tree), 252 doublings and 6 additions (ladder).
+__global__ void __launch_bounds__(MSM_NT)
+msm_rows_kernel(int npts, int n_win, int lw, int lg, int ng, int levels,
+                const uint32_t* scalars, const uint32_t* points, uint32_t* part,
+                int* counters, uint32_t* out, Curve C) {
+  extern __shared__ Pt sm[];
+  const int GP = 1 << lg, NW = 1 << lw, nt = blockDim.x;
+  Pt* T = sm;             // T[d GP + j], d in 1..15
+  Pt* L = sm + 16 * GP;   // L[k GP + j]
+  const int g = blockIdx.x, r = blockIdx.y, tid = threadIdx.x;
+  const int ak = curve_a_kind(C);
+  const size_t row0 = (size_t)r * npts;
+  const int i0 = g * GP;
+  __shared__ int arrived;
+
+  for (int j = tid; j < GP; j += nt)
+    T[GP + j] = i0 + j < npts ? pt_load(points, row0 + i0 + j) : pt_inf(C.F);
+  __syncthreads();
+  for (int j = tid; j < GP; j += nt) T[2 * GP + j] = pt_dbl_k<MsmOps>(T[GP + j], C, ak);
+  __syncthreads();
+  // steps 2 and 3: the additions on the first warp, the doubling on the
+  // second (where the block has one), so they do not serialise in a warp
+  const int dbl0 = nt >= 32 + MSM_GROUP_MAX ? 32 : 3 * GP;
+  for (int t = tid; t < GP; t += nt)
+    T[3 * GP + t] = pt_add_k<MsmOps>(T[2 * GP + t], T[GP + t], C, ak);
+  for (int t = tid - dbl0; t >= 0 && t < GP; t += nt)
+    T[4 * GP + t] = pt_dbl_k<MsmOps>(T[2 * GP + t], C, ak);
+  __syncthreads();
+  for (int t = tid; t < 3 * GP; t += nt) {
+    const int j = t & (GP - 1), c = t >> lg;
+    T[(5 + c) * GP + j] = pt_add_k<MsmOps>(T[4 * GP + j], T[(1 + c) * GP + j], C, ak);
   }
-  pt_store(out, r, acc);
+  for (int t = tid - dbl0; t >= 0 && t < GP; t += nt)
+    T[8 * GP + t] = pt_dbl_k<MsmOps>(T[4 * GP + t], C, ak);
+  __syncthreads();
+  for (int t = tid; t < 7 * GP; t += nt) {
+    const int j = t & (GP - 1), c = t >> lg;
+    T[(9 + c) * GP + j] = pt_add_k<MsmOps>(T[8 * GP + j], T[(1 + c) * GP + j], C, ak);
+  }
+  __syncthreads();
+
+  for (int t = tid; t < NW * GP; t += nt) {
+    const int k = t >> lg, j = t & (GP - 1), i = i0 + j;
+    int d = 0;
+    if (k < n_win && i < npts) {
+      const int bit = MSM_WIN * k;  // a window never straddles two limbs
+      d = (int)((scalars[8 * (row0 + i) + (bit >> 5)] >> (bit & 31)) & (MSM_DIGITS - 1));
+    }
+    L[t] = d ? T[d * GP + j] : pt_inf(C.F);
+  }
+  __syncthreads();
+  for (int s = 1; s < GP; s <<= 1) {
+    for (int t = tid; t < NW * GP; t += nt)
+      if ((t & (2 * s - 1)) == 0) L[t] = pt_add_k<MsmOps>(L[t], L[t + s], C, ak);
+    __syncthreads();
+  }
+
+  int node = g;
+  for (int l = 0; l < levels; ++l) {
+    const int sib = node ^ 1;
+    if (sib >= ((ng - 1) >> l) + 1) {  // no sibling at this level: pass up
+      node >>= 1;
+      continue;
+    }
+    uint32_t* mine = part + ((size_t)r * ng + ((size_t)node << l)) * NW * 24;
+    for (int k = tid; k < NW; k += nt) pt_store(mine, k, L[k * GP]);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0)
+      arrived = atomicAdd(&counters[((size_t)r * levels + l) * ng + (node >> 1)], 1);
+    __syncthreads();
+    if (arrived == 0) return;  // the sibling's block carries the node on
+    __threadfence();
+    const uint32_t* other = part + ((size_t)r * ng + ((size_t)sib << l)) * NW * 24;
+    for (int k = tid; k < NW; k += nt) {
+      const Pt o = pt_load_cg(other, k);
+      const bool right = node & 1;  // left + right, whichever block arrived last
+      L[k * GP] = pt_add_k<MsmOps>(right ? o : L[k * GP], right ? L[k * GP] : o, C, ak);
+    }
+    __syncthreads();
+    node >>= 1;
+  }
+
+  for (int l = 0; l < lw; ++l) {
+    const int half = NW >> (l + 1);
+    for (int q0 = 0; q0 < half; q0 += nt >> 2) {  // a quad of lanes a pair
+      const int q = q0 + (tid >> 2);
+      Pt acc;
+      if (q < half) {
+        const Pt hi = pt_dbl_quad_n<MsmOps>(L[(2 * q + 1) * GP], MSM_WIN << l, C, ak);
+        acc = pt_add_k<MsmOps>(L[2 * q * GP], hi, C, ak);
+      }
+      __syncthreads();
+      if (q < half && (tid & 3) == 0) L[q * GP] = acc;
+      __syncthreads();
+    }
+  }
+  if (tid == 0) pt_store(out, r, L[0]);
 }
 
 constexpr int BIN_LANES = 2 * SUM_NT;  // lanes a block of msm_binary sums
@@ -183,32 +291,30 @@ extern "C" int sp2_scalar_mul_base(int n, int nbits, const uint32_t* k_words,
                          curve_words, stream);
 }
 
-extern "C" int sp2_msm_rows(int rows, int npts, int n_win, const void* scalars,
-                            const void* points, void* table, void* sums, void* out,
+extern "C" int sp2_msm_rows(int rows, int npts, int n_win, int lg, const void* scalars,
+                            const void* points, void* part, void* counters, void* out,
                             const uint32_t* curve_words, void* stream) {
   Curve C = curve_from_words(curve_words);
-  if (rows < 1 || rows > 65535 || npts < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int n = rows * npts;
-  const int nt = 128;
-  msm_table_kernel<<<(n + nt - 1) / nt, nt, 0, s>>>(
-      n, (const uint32_t*)points, (uint32_t*)table, C);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  msm_window_kernel<<<dim3(n_win, rows), SUM_NT, 0, s>>>(
-      npts, n_win, (const uint32_t*)scalars, (const uint32_t*)table,
-      (uint32_t*)sums, C);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  const int hn = 64;
-  msm_horner_kernel<<<(rows + hn - 1) / hn, hn, 0, s>>>(
-      rows, n_win, (const uint32_t*)sums, (uint32_t*)out, C);
+  if (rows < 1 || rows > 65535 || npts < 1 || n_win < 1 || n_win > 64 || lg < 0 ||
+      (1 << lg) > MSM_GROUP_MAX)
+    return (int)cudaErrorInvalidValue;
+  int lw = 0;
+  while ((1 << lw) < n_win) ++lw;
+  const int gp = 1 << lg, nt = ((1 << lw) * gp + 31) / 32 * 32;
+  if (nt > MSM_NT) return (int)cudaErrorInvalidValue;
+  const int ng = (npts + gp - 1) / gp;
+  int levels = 0;
+  while ((1 << levels) < ng) ++levels;
+  const size_t smem = (size_t)(MSM_DIGITS + (1 << lw)) * gp * sizeof(Pt);
+  msm_rows_kernel<<<dim3(ng, rows), nt, smem, (cudaStream_t)stream>>>(
+      npts, n_win, lw, lg, ng, levels, (const uint32_t*)scalars, (const uint32_t*)points,
+      (uint32_t*)part, (int*)counters, (uint32_t*)out, C);
   return (int)cudaGetLastError();
 }
 
-extern "C" int sp2_msm(int n, int n_win, const void* scalars, const void* points,
-                       void* table, void* sums, void* out,
+extern "C" int sp2_msm(int n, int n_win, int lg, const void* scalars, const void* points,
+                       void* part, void* counters, void* out,
                        const uint32_t* curve_words, void* stream) {
-  return sp2_msm_rows(1, n, n_win, scalars, points, table, sums, out, curve_words,
+  return sp2_msm_rows(1, n, n_win, lg, scalars, points, part, counters, out, curve_words,
                       stream);
 }

@@ -23,6 +23,13 @@
 // Entries:
 //   sp2_eq_table     out[i] = prod_j (bit_j(i) ? r_j : 1 - r_j), where r_0
 //                    drives the most significant index bit (eq.py:79-94).
+//                    One product an element: a block owns a prefix of the
+//                    top m - 10 bits and writes its 2^10 elements as
+//                    prefix * A[hi] * B[lo], A and B the doubling tables of
+//                    the next 5 and the last 5 bits, built in the block
+//                    (eq_tables_kernel, on the carry-chain product).
+//   sp2_eq_tables    the same for a list of tables in one launch (factors
+//                    and outputs back to back): the outer sum-check's plan.
 //   sp2_pow_table    out[k] = prod_j (bit_j(k) ? g_j : 1) = t^k from the m
 //                    powers g_j = t^(2^(m-1-j)); g_0 drives the most
 //                    significant index bit, as in the eq table.
@@ -51,8 +58,12 @@
 // An explicit eq table is bound alongside A, B, C, so any tau works,
 // including tau in {0, 1} where the JAX Gruen split had to fall back.
 //
-// Bound: a cubic round reads 4 halves-pairs (256 bytes per pair) and
-// does 6 Montgomery products per pair; the products bound it.  Round 0
+// Bound: the eq table writes 2^m elements of 32 bytes and needs one
+// Montgomery product each; at 2^20 the products bound it (16 us at the
+// card's multiply rate, 10 us of stores); the outer plan's 20 small tables
+// are latency: a block's chain is about 12 products.  A cubic round reads
+// 4 halves-pairs (256 bytes per pair) and does 6 Montgomery products per
+// pair; the products bound it.  Round 0
 // of the inner sum-check reads abc and z once at width num_cols instead
 // of the padded 2 num_vars, and does num_vars + 2 num_extra products.
 
@@ -65,21 +76,78 @@ constexpr int MODE_CUBIC = 0;
 constexpr int MODE_QUAD = 1;
 constexpr int MODE_DOT = 2;
 
-__global__ void eq_table_kernel(int m, const Fe* rs, uint32_t* out, Field F) {
-  // rs: 2m factors in Montgomery form, r_j then (1 - r_j)
-  __shared__ Fe sr[128];
-  for (int j = threadIdx.x; j < 2 * m; j += blockDim.x) sr[j] = rs[j];
-  __syncthreads();
-  const size_t n = (size_t)1 << m;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    Fe acc = fe_one(F);
-    for (int j = 0; j < m; ++j) {
-      const int bit = (int)((i >> (m - 1 - j)) & 1);
-      acc = fe_mul(acc, bit ? sr[j] : sr[m + j], F);
+// Tables of one eq-table launch: table k has m[k] variables, its factors
+// [r_0 .. r_{m-1}, 1 - r_0 .. 1 - r_{m-1}] at rs[fac[k]], its 2^m[k]
+// elements at out[first[k]], its blocks from block0[k].
+constexpr int EQ_MAX_TABLES = 64;
+constexpr int EQ_LOW_BITS = 10;  // elements a block writes: 2^10, 4 a thread
+
+struct EqPlan {
+  int n;
+  int m[EQ_MAX_TABLES];
+  int fac[EQ_MAX_TABLES];
+  long long first[EQ_MAX_TABLES];
+  int block0[EQ_MAX_TABLES + 1];
+};
+
+// T[x] for x < 2^nb: the product of factors j0 .. j0 + nb - 1, each r_j or
+// 1 - r_j by a bit of x (j0 on the top bit), built by doubling in shared
+// memory by one warp.
+__device__ __forceinline__ void eq_doubling(Fe* T, const Fe* r, int m, int j0, int nb,
+                                            const Field& F) {
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) T[0] = fe_one(F);
+  __syncwarp();
+  for (int s = 0; s < nb; ++s) {
+    Fe lo, hi;
+    if (lane < (1 << s)) {
+      const Fe o = T[lane];
+      lo = fe_mul_cc(o, r[m + j0 + s], F);
+      hi = fe_mul_cc(o, r[j0 + s], F);
     }
-    fe_store(out, i, acc);
+    __syncwarp();
+    if (lane < (1 << s)) {
+      T[2 * lane] = lo;
+      T[2 * lane + 1] = hi;
+    }
+    __syncwarp();
   }
+}
+
+// Block b of table k writes the 2^b elements under one prefix of the top
+// m - b bits (b = min(m, 10)): warp 0 builds A over the next b1 = b / 2
+// bits and warp 1 B over the last b2 = b - b1, by doubling; warp 2 forms
+// the prefix's product; then A' = prefix A, and element t = A'[t >> b2]
+// B[t & (2^b2 - 1)]: one product an element, neighbouring threads on
+// neighbouring elements.
+__global__ void __launch_bounds__(NT) eq_tables_kernel(const Fe* rs, uint32_t* out,
+                                                       EqPlan plan, Field F) {
+  __shared__ Fe A[1 << (EQ_LOW_BITS / 2)], B[1 << (EQ_LOW_BITS - EQ_LOW_BITS / 2)];
+  __shared__ Fe base;
+  int k = 0;
+  while ((int)blockIdx.x >= plan.block0[k + 1]) ++k;
+  const int m = plan.m[k];
+  const Fe* r = rs + plan.fac[k];
+  const int b = m < EQ_LOW_BITS ? m : EQ_LOW_BITS, top = m - b;
+  const int b1 = b / 2, b2 = b - b1;
+  const size_t prefix = blockIdx.x - plan.block0[k];
+  const int warp = threadIdx.x >> 5;
+  if (warp == 0) {
+    eq_doubling(A, r, m, top, b1, F);
+  } else if (warp == 1) {
+    eq_doubling(B, r, m, top + b1, b2, F);
+  } else if (threadIdx.x == 64) {
+    Fe acc = fe_one(F);
+    for (int j = 0; j < top; ++j)
+      acc = fe_mul_cc(acc, (prefix >> (top - 1 - j)) & 1 ? r[j] : r[m + j], F);
+    base = acc;
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < (1 << b1)) A[threadIdx.x] = fe_mul_cc(base, A[threadIdx.x], F);
+  __syncthreads();
+  uint32_t* o = out + 8 * (plan.first[k] + ((size_t)prefix << b));
+  for (int t = threadIdx.x; t < (1 << b); t += NT)
+    fe_store(o, t, fe_mul_cc(A[t >> b2], B[t & ((1 << b2) - 1)], F));
 }
 
 __global__ void pow_table_kernel(int m, const Fe* gs, uint32_t* out, Field F) {
@@ -235,14 +303,38 @@ static unsigned blocks_for(size_t n, unsigned cap) {
   return (unsigned)(b < cap ? b : cap);
 }
 
+// Tables of m[0 .. n) variables, factors back to back in rs (2 m[k] each),
+// outputs back to back in out (2^m[k] elements each).
+extern "C" int sp2_eq_tables(int n, const int* ms, const void* rs, void* out,
+                             const uint32_t* field_words, void* stream) {
+  Field F = field_from_words(field_words);
+  if (n < 1 || n > EQ_MAX_TABLES) return (int)cudaErrorInvalidValue;
+  EqPlan plan;
+  plan.n = n;
+  int fac = 0, blocks = 0;
+  long long first = 0;
+  for (int k = 0; k < n; ++k) {
+    const int m = ms[k];
+    if (m < 0 || m > 40) return (int)cudaErrorInvalidValue;
+    plan.m[k] = m;
+    plan.fac[k] = fac;
+    plan.first[k] = first;
+    plan.block0[k] = blocks;
+    fac += 2 * m;
+    first += 1LL << m;
+    const long long nb = 1LL << (m > EQ_LOW_BITS ? m - EQ_LOW_BITS : 0);
+    if (blocks + nb > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+    blocks += (int)nb;
+  }
+  plan.block0[n] = blocks;
+  eq_tables_kernel<<<blocks, NT, 0, (cudaStream_t)stream>>>((const Fe*)rs, (uint32_t*)out,
+                                                            plan, F);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int sp2_eq_table(int m, const void* rs, void* out,
                             const uint32_t* field_words, void* stream) {
-  Field F = field_from_words(field_words);
-  if (m > 40) return (int)cudaErrorInvalidValue;
-  const size_t n = (size_t)1 << m;
-  eq_table_kernel<<<blocks_for(n, 65535), NT, 0, (cudaStream_t)stream>>>(
-      m, (const Fe*)rs, (uint32_t*)out, F);
-  return (int)cudaGetLastError();
+  return sp2_eq_tables(1, &m, rs, out, field_words, stream);
 }
 
 extern "C" int sp2_pow_table(int m, const void* gs, void* out,

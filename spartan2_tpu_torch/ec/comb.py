@@ -81,11 +81,92 @@ def pt_dbl(P: torch.Tensor, curve: CurveSpec) -> torch.Tensor:
     return _sel(_is_zero(Z) | _is_zero(Y), _inf_like(P, curve), R)
 
 
+# A CPU batch of at most this many points runs the group law in Python
+# integers, converted once: a batched field operation on a few points costs
+# more in conversions than in arithmetic.  The same formulas and branches,
+# so the same limbs (tests/test_torch_ec.py runs both paths).  The two
+# paths' CPU times cross between 4096 and 8192 points a batch for an
+# addition and four doublings a point; the threshold sits at the lower end.
+_INT_POINTS = 4096
+
+
+def _int_path(*pts: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in pts) and pts[0][..., 0, 0].numel() <= _INT_POINTS
+
+
+def _to_ints(P: torch.Tensor) -> list:
+    raw = P.contiguous().numpy().tobytes()
+    v = [int.from_bytes(raw[i : i + 32], "little") for i in range(0, len(raw), 32)]
+    return [v[i : i + 3] for i in range(0, len(v), 3)]
+
+
+def _from_ints(pts: list, shape) -> torch.Tensor:
+    data = bytearray(b"".join(c.to_bytes(32, "little") for pt in pts for c in pt))
+    return torch.frombuffer(data, dtype=torch.int32).reshape(shape)
+
+
+def _int_curve(curve: CurveSpec) -> tuple:
+    """(p, 2^-256 mod p, a and 1 in Montgomery form)."""
+    F = curve.base
+    p = F.modulus
+    return p, pow(1 << 256, -1, p), F.to_mont(curve.a % p), F.to_mont(1)
+
+
+def _dbl_int(X: int, Y: int, Z: int, c: tuple) -> list:
+    p, ri, a, one = c
+    if Z == 0 or Y == 0:
+        return [one, one, 0]
+    XX, YY, ZZ = X * X * ri % p, Y * Y * ri % p, Z * Z * ri % p
+    S = 4 * X * YY * ri % p
+    M = (3 * XX + a * (ZZ * ZZ * ri % p) * ri) % p
+    X3 = (M * M * ri - 2 * S) % p
+    return [X3, (M * (S - X3) * ri - 8 * (YY * YY * ri % p)) % p, 2 * Y * Z * ri % p]
+
+
+def _add_int(P: list, Q: list, c: tuple) -> list:
+    p, ri, _, one = c
+    (X1, Y1, Z1), (X2, Y2, Z2) = P, Q
+    if Z1 == 0:
+        return Q
+    if Z2 == 0:
+        return P
+    Z1Z1, Z2Z2 = Z1 * Z1 * ri % p, Z2 * Z2 * ri % p
+    U1, U2 = X1 * Z2Z2 * ri % p, X2 * Z1Z1 * ri % p
+    S1 = Y1 * (Z2 * Z2Z2 * ri % p) * ri % p
+    S2 = Y2 * (Z1 * Z1Z1 * ri % p) * ri % p
+    H, Rr = (U2 - U1) % p, (S2 - S1) % p
+    if H == 0:
+        return _dbl_int(X1, Y1, Z1, c) if Rr == 0 else [one, one, 0]
+    HH = H * H * ri % p
+    HHH, V = H * HH * ri % p, U1 * HH * ri % p
+    X3 = (Rr * Rr * ri - HHH - 2 * V) % p
+    return [X3, (Rr * (V - X3) * ri - S1 * HHH * ri) % p, (Z1 * Z2 * ri % p) * H * ri % p]
+
+
+def pt_dbl_n(P: torch.Tensor, k: int, curve: CurveSpec) -> torch.Tensor:
+    """k doublings of P (``pt_dbl`` k times, the same limbs)."""
+    if not _int_path(P):
+        for _ in range(k):
+            P = pt_dbl(P, curve)
+        return P
+    c = _int_curve(curve)
+    out = []
+    for pt in _to_ints(P):
+        for _ in range(k):
+            pt = _dbl_int(*pt, c)
+        out.append(pt)
+    return _from_ints(out, P.shape)
+
+
 def pt_add(P: torch.Tensor, Q: torch.Tensor, curve: CurveSpec) -> torch.Tensor:
     F = curve.base
     mul, add, sub = (lambda a, b: ops.mont_mul(a, b, F),
                      lambda a, b: ops.add(a, b, F), lambda a, b: ops.sub(a, b, F))
     P, Q = torch.broadcast_tensors(P, Q)
+    if _int_path(P, Q):
+        c = _int_curve(curve)
+        return _from_ints([_add_int(a, b, c) for a, b in zip(_to_ints(P), _to_ints(Q))],
+                          P.shape)
     X1, Y1, Z1 = P.unbind(-2)
     X2, Y2, Z2 = Q.unbind(-2)
     Z1Z1, Z2Z2 = mul(Z1, Z1), mul(Z2, Z2)

@@ -8,13 +8,21 @@ commitments a Hyrax verifier folds (kernel 5: the JAX package's
 DeviceCurve.msm, ec/device.py:398, reached through HyraxPCS._msm_auto),
 and R such sums at once, one per row of I points (kernel C:
 DeviceCurve.msm_rows, ec/device.py:424, which HyraxPCS.fold_commitments
-uses to fold commitments row by row).  Each point gets a table of its 16
-multiples, each 4-bit window sums one table entry per point of its row,
-and a Horner ladder of 4 doublings per window joins a row's window sums.
-The points may come from a proof, so every addition is complete.
+uses to fold commitments row by row).  One launch an entry call: each
+point's 16 multiples in four dependent steps (``msm_table_plain``); per
+4-bit window the row's picked multiples summed by an adjacent-pair tree
+over the points (across blocks for rows of more than GP points,
+``msm_layout``); then an adjacent-pair ladder over the windows, P_j =
+P_2j + 2^(4 2^l) P_2j+1, whose doublings a quad of lanes shares.  Its
+longest chain: 255 doublings (a 256-bit scalar of a runtime point needs
+them in sequence, the latency floor) and 7 + log2 I additions; its work,
+microseconds at the card's multiply rate, is not what bounds it.  The
+points may come from a proof, so every addition is complete.
 
 The plain version follows the kernel's order of additions exactly, so
-the kernel's Jacobian output equals it limb for limb.
+the kernel's Jacobian output equals it limb for limb; the block split of
+a row does not change that order (an identity addend returns the other
+point unchanged).
 
 ``msm_binary``, ``msm_points_per_lane`` and ``scalar_mul_host_base`` are
 the JAX package's DeviceCurve functions of the same names (ec/device.py
@@ -31,52 +39,89 @@ from ..errors import InvalidCommitmentLengthError
 from ..field import ops
 from ..field.limbs import to_device
 from ..utils.cuda import CudaKernel, I, P, check_cuda
-from .comb import (_inf_like, _sel, curve_words, pt_add, pt_add_mixed, pt_dbl,
+from .comb import (_inf_like, _sel, curve_words, pt_add, pt_add_mixed, pt_dbl, pt_dbl_n,
                    row_sum_plain, scalar_digits, to_affine)
 from .curve import Affine, CurveSpec
 
-MSM = CudaKernel("msm", {"sp2_msm": [I, I, P, P, P, P, P, P],
-                         "sp2_msm_rows": [I, I, I, P, P, P, P, P, P],
+MSM = CudaKernel("msm", {"sp2_msm": [I, I, I, P, P, P, P, P, P],
+                         "sp2_msm_rows": [I, I, I, I, P, P, P, P, P, P],
                          "sp2_msm_binary": [I, P, P, P, P, P, P],
                          "sp2_msm_per_lane": [I, I, P, P, P, P, P],
                          "sp2_scalar_mul_base": [I, I, P, P, P, P, P]})
 
 MSM_WINDOW_BITS = 4
-MSM_DIGITS = 1 << MSM_WINDOW_BITS
 FULL_BITS = 256
 # Below this many points the host Pippenger serves, as in the JAX
 # package's _msm_auto (pcs/hyrax.py:674).
 MSM_MIN_POINTS = 64
 BIN_LANES = 256  # lanes a block of msm_binary sums (csrc/msm.cu)
+MSM_THREADS = 256  # threads of a block of the windowed MSM at most (csrc/msm.cu MSM_NT)
+MSM_GROUP_MAX = 8  # points of a row a block takes at most (csrc/msm.cu)
 
 
 def msm_windows(nbits: int) -> int:
     return max(1, -(-nbits // MSM_WINDOW_BITS))
 
 
+def _log2_ceil(n: int) -> int:
+    return (n - 1).bit_length()
+
+
+def msm_layout(npts: int, n_win: int) -> tuple[int, int, int]:
+    """(log2 GP, ng, levels) of csrc/msm.cu's kernel for rows of ``npts``
+    points: a block takes GP points (a power of two, at most
+    MSM_GROUP_MAX, and NW * GP <= MSM_THREADS for NW = 2^ceil(log2
+    n_win) windows), a row ng blocks, joined by a tree of ``levels``."""
+    gp = min(1 << _log2_ceil(npts), MSM_GROUP_MAX, MSM_THREADS >> _log2_ceil(n_win))
+    ng = -(-npts // gp)
+    return gp.bit_length() - 1, ng, _log2_ceil(ng)
+
+
+def _pad(pts: torch.Tensor, dim: int, size: int, curve: CurveSpec) -> torch.Tensor:
+    """``pts`` (..., 3, 8) padded with the identity along ``dim`` to ``size``."""
+    extra = size - pts.shape[dim]
+    if extra == 0:
+        return pts
+    shape = list(pts.shape)
+    shape[dim] = extra
+    return torch.cat([pts, _inf_like(torch.empty(shape, device=pts.device), curve)], dim)
+
+
+def msm_table_plain(points: torch.Tensor, curve: CurveSpec) -> torch.Tensor:
+    """(..., 3, 8) -> (16, ..., 3, 8) multiples d Q, d < 16, in the
+    kernel's four steps: 2Q = dbl Q; 3Q = 2Q + Q, 4Q = dbl 2Q; 5Q..7Q = 4Q
+    + (Q..3Q), 8Q = dbl 4Q; 9Q..15Q = 8Q + (Q..7Q)."""
+    t = [_inf_like(points, curve), points, pt_dbl(points, curve)]
+    t += [pt_add(t[2], t[1], curve), pt_dbl(t[2], curve)]
+    t += list(pt_add(t[4], torch.stack(t[1:4]), curve).unbind(0)) + [pt_dbl(t[4], curve)]
+    t += list(pt_add(t[8], torch.stack(t[1:8]), curve).unbind(0))
+    return torch.stack(t)
+
+
 def msm_rows_plain(scalars: torch.Tensor, points: torch.Tensor, curve: CurveSpec,
                    nbits: int = FULL_BITS) -> torch.Tensor:
-    """Plain version of ``msm_rows``."""
+    """Plain version of ``msm_rows``, in the kernel's order: each point's
+    table (``msm_table_plain``); per row and window the picked multiples
+    (the identity for a zero digit) summed by the adjacent-pair tree over
+    the row's points padded with the identity to a power of two; then the
+    windows, padded to a power of two, joined by the adjacent-pair ladder
+    P_j = P_2j + 2^(4 2^l) P_2j+1 at level l."""
     R, n = points.shape[:2]
     n_win = msm_windows(nbits)
-    rows = [_inf_like(points, curve), points]
-    acc = points
-    for _ in range(2, MSM_DIGITS):
-        acc = pt_add(acc, points, curve)
-        rows.append(acc)
-    table = torch.stack(rows)  # (16, R, n, 3, 8)
+    table = msm_table_plain(points, curve)  # (16, R, n, 3, 8)
     d = scalar_digits(scalars, n_win, MSM_WINDOW_BITS)  # (n_win, R, n)
     r_idx = torch.arange(R, device=points.device)[:, None]
     i_idx = torch.arange(n, device=points.device)
-    picked = table[d, r_idx, i_idx]  # (n_win, R, n, 3, 8)
-    sums = row_sum_plain(picked.reshape(n_win * R, n, 3, 8), curve)
-    sums = sums.reshape(n_win, R, 3, 8)
-    acc = _inf_like(sums[0], curve)
-    for k in range(n_win - 1, -1, -1):
-        for _ in range(MSM_WINDOW_BITS):
-            acc = pt_dbl(acc, curve)
-        acc = pt_add(acc, sums[k], curve)
-    return acc
+    picked = table[d, r_idx, i_idx]  # (n_win, R, n, 3, 8); table[0] is the identity
+    picked = _pad(picked, 2, 1 << _log2_ceil(n), curve)
+    while picked.shape[2] > 1:
+        picked = pt_add(picked[:, :, 0::2], picked[:, :, 1::2], curve)
+    acc = _pad(picked[:, :, 0], 0, 1 << _log2_ceil(n_win), curve)  # (NW, R, 3, 8)
+    shift = MSM_WINDOW_BITS
+    while acc.shape[0] > 1:
+        acc = pt_add(acc[0::2], pt_dbl_n(acc[1::2], shift, curve), curve)
+        shift *= 2
+    return acc[0]
 
 
 def _launch(entry: str, scalars: torch.Tensor, points: torch.Tensor,
@@ -85,13 +130,16 @@ def _launch(entry: str, scalars: torch.Tensor, points: torch.Tensor,
     R, n = points.shape[:2]
     if n == 0 or scalars.shape != (R, n, 8) or points.shape != (R, n, 3, 8):
         raise ValueError("msm_rows: scalars (R, I, 8) and points (R, I, 3, 8), I > 0")
+    if not 0 <= nbits <= FULL_BITS:
+        raise ValueError("msm_rows: 0 <= nbits <= 256")
     dev = points.device
-    table = torch.empty(MSM_DIGITS, R * n, 3, 8, dtype=torch.int32, device=dev)
     n_win = msm_windows(nbits)
-    sums = torch.empty(R, n_win, 3, 8, dtype=torch.int32, device=dev)
+    lg, ng, levels = msm_layout(n, n_win)
+    part = torch.empty(R * ng << _log2_ceil(n_win), 3, 8, dtype=torch.int32, device=dev)
+    counters = torch.zeros(max(1, R * levels * ng), dtype=torch.int32, device=dev)
     out = torch.empty(R, 3, 8, dtype=torch.int32, device=dev)
-    args = (n_win, scalars.data_ptr(), points.data_ptr(), table.data_ptr(),
-            sums.data_ptr(), out.data_ptr(), curve_words(curve))
+    args = (n_win, lg, scalars.data_ptr(), points.data_ptr(), part.data_ptr(),
+            counters.data_ptr(), out.data_ptr(), curve_words(curve))
     if entry == "sp2_msm":
         MSM.call(entry, n, *args)
     else:

@@ -17,6 +17,8 @@ slot [r, 1 - r] the finish wrote.
 
 from __future__ import annotations
 
+import struct
+
 import torch
 
 from ..field import ops
@@ -26,6 +28,7 @@ from ..utils.cuda import SZ, CudaKernel, I, P, check_cuda, fe_words, field_words
 
 SUMCHECK = CudaKernel("sumcheck", {
     "sp2_eq_table": [I, P, P, P],
+    "sp2_eq_tables": [I, P, P, P, P],
     "sp2_pow_table": [I, P, P, P],
     "sp2_round_evals": [I, SZ, I, SZ, P, P, P, P, P, I, P, P],
     "sp2_bind": [SZ, I, SZ, I, I, P, P, P, P, P, P],
@@ -99,7 +102,10 @@ def eq_table_plain(factors: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
 
 def eq_table(factors: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     """(2^m, 8) Montgomery eq(r, i) for all i, index bit order MSB-first
-    (polys/eq.py:79-94 of the JAX package); ``factors`` from eq_factors."""
+    (polys/eq.py:79-94 of the JAX package); ``factors`` from eq_factors.
+    On the card one product an element (csrc/sumcheck.cu): a block owns a
+    prefix of the top m - 10 bits and multiplies the prefix's product into
+    two doubling tables of the next 5 and the last 5 bits."""
     if factors.device.type == "cpu":
         return eq_table_plain(factors, spec)
     m = factors.shape[0] // 2
@@ -110,6 +116,37 @@ def eq_table(factors: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     SUMCHECK.call("sp2_eq_table", m, factors.data_ptr(), out.data_ptr(),
                   field_words(spec))
     return out
+
+
+EQ_MAX_TABLES = 64  # tables of one sp2_eq_tables launch (csrc/sumcheck.cu)
+
+
+def eq_tables_plain(factors: torch.Tensor, ms: list[int],
+                    spec: FieldSpec) -> list[torch.Tensor]:
+    """Plain version of ``eq_tables``: ``eq_table_plain`` of each table."""
+    at = [0]
+    for m in ms:
+        at.append(at[-1] + 2 * m)
+    return [eq_table_plain(factors[at[k] : at[k + 1]], spec) for k in range(len(ms))]
+
+
+def eq_tables(factors: torch.Tensor, ms: list[int], spec: FieldSpec) -> list[torch.Tensor]:
+    """The eq tables of at most 64 factor lists in one launch: ``factors``
+    holds eq_factors of each list back to back (2 m_k rows each) ->
+    [(2^m_k, 8)], views of one buffer on the card.  Its caller, the outer
+    sum-check's plan, sends one table a round (at most 40)."""
+    if len(ms) > EQ_MAX_TABLES:
+        raise ValueError(f"eq_tables: at most {EQ_MAX_TABLES} tables, got {len(ms)}")
+    if factors.device.type == "cpu":
+        return eq_tables_plain(factors, ms, spec)
+    check_cuda(factors)
+    if not ms or min(ms) < 0 or factors.shape != (2 * sum(ms), 8):
+        raise ValueError("eq_tables: factors must be (2 sum(ms), 8)")
+    sizes = [1 << m for m in ms]
+    out = torch.empty(sum(sizes), 8, dtype=torch.int32, device=factors.device)
+    SUMCHECK.call("sp2_eq_tables", len(ms), struct.pack(f"<{len(ms)}i", *ms),
+                  factors.data_ptr(), out.data_ptr(), field_words(spec))
+    return list(out.split(sizes))
 
 
 def pow_table_plain(gens: torch.Tensor, spec: FieldSpec) -> torch.Tensor:

@@ -41,7 +41,7 @@ from ..polys.univariate import UniPoly
 from ..transcript.device import DeviceTranscript
 from ..transcript.transcript import Transcript
 from ..utils.cuda import CudaKernel, I, P, check_cuda, fe_words, field_words
-from .device import (CUBIC, QUAD, bind_dev, cubiceq_evals, eq_factors, eq_table,
+from .device import (CUBIC, QUAD, bind_dev, cubiceq_evals, eq_factors, eq_table, eq_tables,
                      inner0_bind_dev, inner0_partials, round_partials)
 from .verify import SumcheckProof
 from .zk_device import prove_zk_cubic, prove_zk_quad
@@ -304,16 +304,13 @@ class SumcheckProverQuad:
 
 def _upload_with_eq_tables(spec: FieldSpec, head: list[int], splits: list, device):
     """One asynchronous upload of ``head`` and the eq factors [r, 1 - r]
-    of each list in ``splits`` -> (head (len, 8), the eq tables built on
-    the device by kernel 2), Montgomery."""
+    of each list in ``splits`` -> (head (len, 8), the eq tables, built on
+    the device by kernel 2 in one launch), Montgomery."""
     p = spec.modulus
     fac = [[t % p for t in r] + [(1 - t) % p for t in r] for r in splits]
     flat = to_device(head + [v for f in fac for v in f], spec, device, mont=True,
                      non_blocking=True)
-    tables, at = [], len(head)
-    for f in fac:
-        tables.append(eq_table(flat[at : at + len(f)], spec))
-        at += len(f)
+    tables = eq_tables(flat[len(head) :], [len(r) for r in splits], spec) if splits else []
     return flat[: len(head)], tables
 
 
@@ -351,6 +348,14 @@ class SumcheckProverCubicEq:
         """Round 0's rows of the upper half below ``eff`` (all without it)."""
         return n // 2 if eff is None else min(n // 2, max(0, eff - n // 2))
 
+    @staticmethod
+    def table_keys(m: int) -> list:
+        """Per round of m: the (lo, hi) tau ranges of its EL (or None) and
+        of its ER / T_j."""
+        fh = m // 2
+        return [((j + 1, fh), (fh, m)) if j < fh - 1 else (None, (j + 1, m))
+                for j in range(m)]
+
     def plan(self, taus: list[int], zero_check: bool, device) -> dict:
         """Every round's constants and eq tables, in one upload: the (m, 4,
         8) constants, the (EL, ER) tables and rlog of each round."""
@@ -363,9 +368,7 @@ class SumcheckProverCubicEq:
             t %= p
             consts += [(1 - t) % p, (2 * t - 1) % p, (2 - 3 * t) % p,
                        pow(t, -1, p) if t else 0]
-        # per round: the (lo, hi) tau ranges of its EL (or None) and ER / T_j
-        keys = [((j + 1, fh), (fh, m)) if j < fh - 1 else (None, (j + 1, m))
-                for j in range(m)]
+        keys = self.table_keys(m)
         uniq = sorted({k for pair in keys for k in pair if k is not None})
         consts, tables = _upload_with_eq_tables(spec, consts, [taus[a:b] for a, b in uniq],
                                                 device)

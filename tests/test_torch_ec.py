@@ -6,8 +6,9 @@ import pytest
 import torch
 
 from spartan2_tpu.ec.curve import get_curve as jax_get_curve
+from spartan2_tpu_torch.ec import comb
 from spartan2_tpu_torch.ec.comb import (
-    FixedBaseComb, comb_build, comb_rows, pt_add, pt_dbl, to_affine)
+    FixedBaseComb, comb_build, comb_rows, pt_add, pt_dbl, pt_dbl_n, to_affine)
 from spartan2_tpu_torch.ec.curve import get_curve
 from spartan2_tpu_torch.ec.msm import MSM_MIN_POINTS, msm, msm_points, to_jacobian
 from spartan2_tpu_torch.field.limbs import to_device
@@ -48,6 +49,26 @@ def test_group_law_edge_cases():
                    zip([G, G, G, None, G, None], [G2, G, negG, G, None, None])]
     assert to_affine(pt_dbl(_jac([G2, None]), CURVE), CURVE) == [JCURVE.add(G2, G2),
                                                                  None]
+
+
+@pytest.mark.parametrize("name", ["p256", "pallas"])
+def test_group_law_int_and_tensor_paths_agree(name, monkeypatch):
+    """The plain group law's two CPU paths (Python integers up to
+    _INT_POINTS points a batch, batched tensors above) give the same limbs
+    on the edge cases: identity on either side, doubling, inverse."""
+    curve, jcurve = get_curve(name), jax_get_curve(name)
+    G = curve.generator
+    G2, G3, negG = jcurve.add(G, G), jcurve.scalar_mul(3, G), jcurve.neg(G)
+    P = to_jacobian([G, G, G, None, G, None, G3, G2], curve, "cpu")
+    Q = to_jacobian([G2, G, negG, G, None, None, G3, negG], curve, "cpu")
+    got = {}
+    for path, limit in (("int", comb._INT_POINTS), ("tensor", 0)):
+        monkeypatch.setattr(comb, "_INT_POINTS", limit)
+        got[path] = (pt_add(P, Q, curve), pt_dbl_n(P, 3, curve))
+    assert all(torch.equal(a, b) for a, b in zip(got["int"], got["tensor"]))
+    assert to_affine(got["int"][0], curve) == [
+        jcurve.add(a, b) for a, b in zip([G, G, G, None, G, None, G3, G2],
+                                         [G2, G, negG, G, None, None, G3, negG])]
 
 
 @pytest.mark.parametrize("width,nbits", [(4, 64), (16, 64), (4, 256)])

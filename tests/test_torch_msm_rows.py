@@ -78,3 +78,28 @@ def test_port_fold_commitments_rejects_unequal_rows():
     pcs = get_engine("P256HyraxEngine").pcs
     with pytest.raises(SpartanError):
         pcs.fold_commitments([HyraxCommitment(c1), HyraxCommitment(c2[:2])], w, "cpu")
+
+
+@pytest.mark.parametrize("R,I,nbits", [(5, 16, 256), (6, 2, 40)])
+def test_msm_rows_edge_rows_match_jax_msm(R, I, nbits):
+    """Kernel C's plain version on the rows chip_smoke also sends the card:
+    all-zero scalars, q - 1 (cut to nbits), a point repeated with its
+    scalar (a doubling in the window sums), a point beside its negation
+    (their identity), a point at infinity; against JAX's CurveSpec.msm."""
+    q = CURVE.scalar.modulus
+    bound = 1 << nbits
+    sc = [v % bound for v in rand_ints(q, R * I, 70 + I)]
+    pts = _points(R * I, 71 + I)
+    sc[0:I] = [0] * I
+    sc[I : 2 * I] = [(q - 1) % bound] * I
+    pts[2 * I + 1], sc[2 * I + 1] = pts[2 * I], sc[2 * I]
+    x, y = pts[3 * I]
+    pts[3 * I + 1], sc[3 * I + 1] = (x, (-y) % CURVE.base.modulus), sc[3 * I]
+    pts[4 * I] = None
+    sc_t = to_device(sc, CURVE.scalar, "cpu").reshape(R, I, 8)
+    jac = to_jacobian(pts, CURVE, "cpu").reshape(R, I, 3, 8)
+    got = to_affine(msm_rows(sc_t, jac, CURVE, nbits), CURVE)
+    assert got == [JCURVE.msm(sc[r * I : (r + 1) * I], pts[r * I : (r + 1) * I])
+                   for r in range(R)]
+    assert got[0] is None and got[3] == JCURVE.msm(sc[3 * I + 2 : 4 * I],
+                                                   pts[3 * I + 2 : 4 * I])
