@@ -15,7 +15,12 @@
    2048, is_small=True), then verifies the proof, checks that a tampered
    public value is rejected and that the serialized proof is 94324 bytes.
    Each timed prove must make two eq-table launches: one sp2_eq_tables
-   (the outer sum-check's 20 tables) and one sp2_eq_table (poly_ABC's).
+   (the outer sum-check's 20 tables) and one sp2_eq_table (poly_ABC's),
+   and the sum-check launches this port states: an F a round (40), kernel
+   A's 19 quad rounds as 1 sp2_round_evals and 18 sp2_round_bind_evals
+   (the previous bind folded in), 20 sp2_bind_dev (kernel G's 19 binds
+   and the quad's last), no sp2_bind; the ZK and NN proves 2
+   sp2_round_evals, m + mq - 2 sp2_round_bind_evals and 2 sp2_bind.
 3. Drives SpartanZkSNARK on the same circuit, from the same synthesized
    shape (setup_from_shape): prep_prove, a warm-up prove and three timed
    proves, verify, a tampered proof rejected, the proof through serde and
@@ -36,7 +41,8 @@
    ZK and NN proves print their verifier-circuit commits (vc_commit:
    calls and host ms).  Each profiled prove (steps 2-4) prints the device
    time, launches and share of the prove's device time of its SpMV, comb
-   rows, kernel C / 5 (msm_rows_kernel) and eq-table kernels.
+   rows, kernel C / 5 (msm_rows_kernel), eq-table kernels, kernel F,
+   kernel A's rounds and the bind; none may launch sum_partials_kernel.
 5. Proves the cubic circuit on the card with both Spartan SNARKs, and
    the two NeutronNova test configurations, from the JAX package's
    recorded keys, prep state and seeds (tests/torch_golden/): each proof
@@ -54,9 +60,24 @@
    before its one pull raises); (d) the same for the inner round 0 and
    the quad rounds over 2^20; (e) the per-round Gruen prover at m = 12
    with tau_0 = 0 and tau_1 = 1 on the card against its plain version.
+   Kernel F in every mode against its plain version: Gruen with
+   zero_check (the peeled round 0's kernel G partials), plain and with
+   fallback (tau = 0), cubic evals on kernel A's sums, quad and inner
+   round 0; each timed by CUDA events and by its device time, and F's
+   latency floor: its product depth times fe_mul_cc's latency plus two
+   warp-wide Keccak-f[1600] permutations, both measured alone by
+   tools/round_latency.py's probe (built beside the kernels).  (g) The
+   enqueued outer and inner sum-checks captured whole in CUDA graphs
+   (a capture fails on any host synchronization) and replayed on two
+   sets of fresh inputs, equal to uncaptured runs.
 7. Holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, on inputs from a fixed seed: equality is exact
    (tolerance 0: every output is an integer mod p, a byte or a digest).
+   Kernel A's round with the previous round's bind folded in against the
+   plain bind-then-evaluate (sums and bound vectors): cubic at 2^20 rows
+   with r from a challenge slot, the ZK cubic at K = 1 and K = 2 over a
+   shared eq, the quad, the mesh's shard shapes, and at 2^12 rows with
+   zeros and p - 1 among the entries and r in {0, 1, random}.
    Times kernel and plain version with CUDA events (no copies inside a
    timed region), and computes each kernel's bound from the bytes, the
    32-bit multiply-adds and the Keccak logic operations this run's data
@@ -184,7 +205,8 @@ def device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
+    total = sum(e.self_device_time_total for e in prof.key_averages())
+    return total / 1e3 / reps if total > 0 else None  # None: the profiler saw no kernel
 
 
 def once_ms(fn):
@@ -419,6 +441,81 @@ def check_eq_tables(F, fac: torch.Tensor, eq_pms: float, entries: dict) -> list:
     return out
 
 
+def edge_field(n: int, spec, gen: torch.Generator, device) -> torch.Tensor:
+    """``rand_field`` with zeros and p - 1 among the entries."""
+    from spartan2_tpu_torch.field.limbs import to_device
+
+    v = rand_field(n, spec, gen, device)
+    v[::7] = 0
+    v[3::11] = to_device([spec.modulus - 1], spec, device)[0]
+    return v
+
+
+def bind_first_case(name: str, mode: int, n: int, vecs: list, r: int, F, reps: int = 5,
+                    slot: bool = False) -> tuple:
+    """Kernel A's round with the previous bind folded in, over ``vecs``
+    carrying n rows (bound in place to n/2, the round over n/2; the eq
+    shared by K > 1 instances into a second buffer): with host r
+    (round_sums_bind, the ZK drivers' form) or, given ``slot``, r read
+    from a challenge slot (round_sums, the enqueued form), against the
+    plain bind-then-evaluate on the card: the sums and every bound vector
+    equal -> (kernel ms over ``reps`` runs on fresh copies by CUDA events,
+    plain ms, the kernel's device ms by the profiler)."""
+    from spartan2_tpu_torch.field import ops
+    from spartan2_tpu_torch.field.limbs import to_device
+    from spartan2_tpu_torch.sumcheck.device import (round_sums, round_sums_bind,
+                                                    round_sums_bind_plain)
+
+    dev = vecs[0].device
+    r_slot = to_device([r, (1 - r) % F.modulus], F, dev, mont=True)
+    # a cubic round of K > 1 instances binds their shared eq into a second buffer
+    shared = mode == 0 and vecs[1].dim() == 3 and vecs[1].shape[0] > 1
+    eq_k = torch.empty_like(vecs[0][: n // 2]) if shared else None
+    eq_p = torch.empty_like(vecs[0][: n // 2]) if shared else None
+
+    def kernel(vs):
+        if slot:
+            return round_sums(mode, n // 2, vs, F, r_slot)
+        return round_sums_bind(mode, n // 2, vs, r, F, eq_out=eq_k)
+
+    k_vecs, p_vecs = [v.clone() for v in vecs], [v.clone() for v in vecs]
+    got = kernel(k_vecs)
+    want, pms = once_ms(lambda: round_sums_bind_plain(mode, n // 2, p_vecs,
+                                                      ops.const(r, F, device=dev), F, eq_p))
+    if not (torch.equal(got, want) and all(torch.equal(a, b) for a, b in zip(k_vecs, p_vecs))
+            and (not shared or torch.equal(eq_k, eq_p))):
+        raise RuntimeError(f"kernel A bind-first ({name}) differs from plain "
+                           "bind-then-evaluate")
+    print(f"equal to plain bind-then-evaluate: kernel A {name}", flush=True)
+    del k_vecs, p_vecs
+    if not reps:
+        return None, pms, None
+    copies = iter([[v.clone() for v in vecs] for _ in range(2 * reps + 2)])
+    ms = cuda_ms(lambda: kernel(next(copies)), reps)
+    dms = device_ms(lambda: kernel(next(copies)), reps)
+    return ms, pms, dms
+
+
+def sums_device_ms(mode: int, n: int, vecs: list, F, reps: int = 5) -> float:
+    """Kernel A's device ms for the round over n rows without a bind (the
+    wrappers that return ints also pull the sums to the host)."""
+    from spartan2_tpu_torch.sumcheck.device import round_sums_batched
+
+    return device_ms(lambda: round_sums_batched(mode, n, vecs, F), reps)
+
+
+def bind_first_bound(mode: int, n: int, vecs: list) -> tuple:
+    """(bytes, Montgomery products) the bind-first round over ``vecs``
+    carrying n rows needs: each vector read once over its n rows and its
+    n / 2 bound rows written; a bind product per bound row, and per pair of
+    the round 3 reduced products (A B at 0, 2, 3) and 3 unreduced ones
+    (half a product each) for CUBIC, 2 unreduced for QUAD."""
+    rows = sum(v.shape[0] if v.dim() == 3 else 1 for v in vecs)  # instance-vectors
+    pairs = n // 4 * (vecs[1].shape[0] if vecs[1].dim() == 3 else 1)
+    per_pair = 3 + 3 * 0.5 if mode == 0 else 2 * 0.5
+    return rows * (n + n // 2) * 32, rows * (n // 2) + pairs * per_pair
+
+
 def compare_kernels(pk, prep, proof, launches: dict):
     """Each kernel against its plain version at the main path's shapes;
     -> (kernel records for the JSON line, detail records)."""
@@ -513,30 +610,28 @@ def compare_kernels(pk, prep, proof, launches: dict):
     check("bind", torch.stack(v1), lambda: (bind_plain(v2, n, rr, F),
                                             torch.stack(v2))[1])
 
-    # one outer round: evaluations, then the bind of all four vectors in
-    # place, on copies made before the clock starts (one per run)
-    reps = 5
-    copies = iter([[v.clone() for v in vecs] for _ in range(reps + 2)])
-
-    def outer_round(ev, bd):
-        def run():
-            res = ev(CUBIC, n, vecs, F)
-            bd(next(copies), n, rr, F)
-            return res
-        return run
-
-    _, pms = once_ms(outer_round(round_evals_plain, bind_plain))
-    record_kernel("sumcheck", "spartan2_tpu/sumcheck/prove.py:244",
-                  cuda_ms(outer_round(round_evals, bind), reps), pms,
-                  4 * n * 32 + 4 * (n // 2) * 32, 10 * (n // 2))
-    del copies
+    # kernel A's round with the previous round's bind folded in, as the
+    # enqueued provers run it (r from the round finish's slot): eq, A, B, C
+    # carry 2^m rows, bound to 2^(m-1), the round's sums over them
+    ms, pms, dms = bind_first_case(f"cubic, bind-first, 2^{m} rows (challenge slot)", CUBIC,
+                                   n, vecs, rr, F, slot=True)
+    record_kernel("sumcheck", "spartan2_tpu/sumcheck/prove.py:244", ms, pms,
+                  *bind_first_bound(CUBIC, n, vecs))
+    out[-1]["device_ms"] = dms
+    ms, pms, dms = bind_first_case(f"quad, bind-first, 2^{m} rows (challenge slot)", QUAD, n,
+                                   vecs[:2], rr, F, slot=True)
+    record_detail(f"round_sums quad bind-first 2^{m} -> 2^{m - 1}", ms, pms,
+                  *bind_first_bound(QUAD, n, vecs[:2]))
+    detail[-1]["device_ms"] = dms
     out.extend(check_eq_tables(F, fac, eq_pms, launches["sumcheck_entries"]))
     record_detail(f"round_evals quad 2^{m}",
                   cuda_ms(lambda: round_evals(QUAD, n, vecs[:2], F), 5), quad_pms,
                   2 * n * 32, n)
+    detail[-1]["device_ms"] = sums_device_ms(QUAD, n, vecs[:2], F)
     record_detail(f"round_evals dot 2^{m}",
                   cuda_ms(lambda: round_evals(DOT, n, vecs[:2], F), 5), dot_pms,
                   2 * n * 32, n)
+    detail[-1]["device_ms"] = sums_device_ms(DOT, n, vecs[:2], F)
     # the verifier's MLE evaluation of A, B, C (shape_eval): two eq
     # tables, one SpMV over T_y and three dot products
     r_y = [random.Random(40 + j).randrange(F.modulus) for j in range(m)]
@@ -662,8 +757,9 @@ def compare_zk_kernels(S, zk_proof, proof, zk_launches: dict):
         p = F.modulus
         return [(e0, (e0 - low + cross) % p) for e0, low, cross in evals]
 
-    # kernel A: one cubic round (evaluations + the bind of E and K
-    # instances of A, B, C) at 2^20, on copies made before the clock starts
+    # kernel A at 2^20: the round as it is (the first of a sum-check) and the
+    # bind of E and K instances of A, B, C, then the round with the bind
+    # folded in, timed on copies made before the clock starts
     n = S.num_cons
     E = rand_field(n, F, gen, dev)
     reps = 5
@@ -678,30 +774,43 @@ def compare_zk_kernels(S, zk_proof, proof, zk_launches: dict):
         plain_ms(f"zk bind K={K}", torch.cat([v.reshape(-1, 8) for v in v1]),
                  lambda: (bind_plain(v2, n, rr, F),
                           torch.cat([v.reshape(-1, 8) for v in v2]))[1])
-        copies = iter([[v.clone() for v in vecs] for _ in range(reps + 2)])
-
-        def cubic_round(ev, bd):
-            def run():
-                res = ev(CUBIC, n, vecs, F)
-                bd(next(copies), n, rr, F)
-                return res
-            return run
-
-        _, pms = once_ms(cubic_round(round_evals_batched_plain, bind_plain))
-        ms = cuda_ms(cubic_round(round_evals_batched, bind), reps)
-        del copies
-        nbytes = (1 + 3 * K) * (n + n // 2) * 32
-        muls = (9 * K + 1) * (n // 2)
+        # the round with the previous bind folded in: E and K instances of
+        # A, B, C carry 2^20 rows, bound to 2^19 (E once), the sums over them
+        ms, pms, dms = bind_first_case(
+            f"zk cubic, bind-first, K = {K}, 2^20 rows (shared eq)", CUBIC, n, vecs, rr, F,
+            reps)
+        nbytes, muls = bind_first_bound(CUBIC, n, vecs)
         if K == 1:
             out.append(kernel_record(
                 "zk_rounds", "spartan2_tpu/sumcheck/zk_device.py:102",
-                sc_calls.get("sp2_round_evals", 0) + sc_calls.get("sp2_bind", 0),
-                f"sp2_round_evals and sp2_bind entry calls {ZK_PATH} (the ZK cubic "
-                "and quad rounds, and verify's 3 dot products)",
+                sum(sc_calls.get(e, 0) for e in ("sp2_round_evals", "sp2_round_bind_evals",
+                                                 "sp2_bind")),
+                f"sp2_round_evals, sp2_round_bind_evals and sp2_bind entry calls {ZK_PATH} "
+                "(the ZK cubic and quad rounds, each sum-check's last bind, and verify's "
+                "3 dot products)",
                 ms, pms, nbytes, muls, "spartan2_tpu_torch/csrc/sumcheck.cu"))
+            out[-1]["device_ms"] = dms
         else:
-            detail.append(detail_record(f"zk cubic round K={K} at 2^{n.bit_length() - 1}",
+            detail.append(detail_record(f"zk cubic round bind-first K={K} at "
+                                        f"2^{n.bit_length() - 1} -> 2^{n.bit_length() - 2}",
                                         ms, pms, nbytes, muls))
+            detail[-1]["device_ms"] = dms
+    # edge values: zeros and p - 1 among the entries, r in {0, 1, random},
+    # K = 2 over a shared eq and the quad K = 2, at 2^12 rows
+    for r_e in (0, 1, rr):
+        ve = [edge_field(1 << 12, F, gen, dev)] + [
+            edge_field(2 << 12, F, gen, dev).reshape(2, 1 << 12, 8) for _ in range(3)]
+        bind_first_case(f"zk cubic, bind-first, K = 2, edge values, r = {r_e}", CUBIC,
+                        1 << 12, ve, r_e, F, 0)
+        bind_first_case(f"zk quad, bind-first, K = 2, edge values, r = {r_e}", QUAD,
+                        1 << 12, ve[1:3], r_e, F, 0)
+    # the quad round with its bind at 2^20 rows (2^19 after the bind)
+    vq = [rand_field(n, F, gen, dev)[None] for _ in range(2)]
+    ms, pms, dms = bind_first_case("zk quad, bind-first, 2^20 rows", QUAD, n, vq, rr, F, reps)
+    detail.append(detail_record("zk quad round bind-first 2^20 -> 2^19", ms, pms,
+                                *bind_first_bound(QUAD, n, vq)))
+    detail[-1]["device_ms"] = dms
+    del vq
     # kernel A's quad round at the inner sum-check's width 2^19, stride num_cols
     nq = S.num_vars
     az = [rand_field(S.num_cols, F, gen, dev)[None] for _ in range(2)]
@@ -711,6 +820,7 @@ def compare_zk_kernels(S, zk_proof, proof, zk_launches: dict):
         f"zk quad round evals at 2^{nq.bit_length() - 1}",
         cuda_ms(lambda: round_evals_batched(QUAD, nq, az, F), reps), pms,
         2 * nq * 32, nq))
+    detail[-1]["device_ms"] = sums_device_ms(QUAD, nq, az, F)
 
     # kernel B: the structured inner round 0 at num_cols (evals + bind)
     nv, ne = S.num_vars, S.num_cols - S.num_vars
@@ -842,14 +952,33 @@ def kernel_group(name: str) -> str | None:
         return "msm"  # kernels C and 5
     if name.startswith("eq_tables_kernel"):
         return "eq"
+    if name.startswith("round_finish_kernel"):
+        return "F"
+    if "round_kernel<" in name:
+        return "A"  # kernel A's rounds, the previous bind folded in
+    if name.startswith("bind_kernel"):
+        return "bind"  # each sum-check's last bind, and kernel G's binds
+    if name.startswith("sum_partials"):
+        return "sum_partials"
     return None
 
 
 def print_redesigned(path: str, groups: dict, dev_ms: float) -> None:
     share = {g: [ms, n, round(ms / dev_ms, 4)] for g, (ms, n) in groups.items()}
-    print(f"{path} prove, redesigned kernels: SpMV, comb rows, kernel C (msm) and eq "
-          f"tables (device ms, launches, share of the prove's {dev_ms:.4f} device ms): "
-          f"{json.dumps(share)}", flush=True)
+    print(f"{path} prove, redesigned kernels: SpMV, comb rows, kernel C (msm), eq "
+          "tables, kernel F, kernel A's rounds and the bind (device ms, launches, share "
+          f"of the prove's {dev_ms:.4f} device ms): {json.dumps(share)}", flush=True)
+    if "sum_partials" in groups:
+        raise RuntimeError(f"{path} prove launched sum_partials_kernel")
+
+
+def sumcheck_counts(counts: dict, want: dict, path: str) -> None:
+    """A prove's kernel A / bind / F wrapper calls against the counts PERF.md
+    states (the sum-checks' rounds: one F each, kernel A's first plain)."""
+    got = {e: counts.get(e, 0) for e in want}
+    if got != want:
+        raise RuntimeError(f"{path}: sum-check launches a prove {got}, expected {want}")
+    print(f"{path}: sum-check launches a prove, as expected: {json.dumps(got)}", flush=True)
 
 
 def profiled_device_ms(fn) -> tuple[float, float, list, dict]:
@@ -916,14 +1045,23 @@ def run_spartan(engine, circuit, dev, kernels):
         torch.cuda.synchronize()
         timed.append(time.perf_counter() - t0)
         per_prove = {k.name: k.launches - before[k.name] for k in kernels}
-        eq_prove = {e: sumcheck.entry_launches.get(e, 0) - before_e.get(e, 0)
-                    for e in ("sp2_eq_tables", "sp2_eq_table")}
+        sc_prove = {e: c - before_e.get(e, 0) for e, c in sumcheck.entry_launches.items()}
+        eq_prove = {e: sc_prove.get(e, 0) for e in ("sp2_eq_tables", "sp2_eq_table")}
     phases["prove_s"] = timed
     # the outer sum-check's eq tables in one launch; prepare_poly_ABC's own
     if eq_prove != {"sp2_eq_tables": 1, "sp2_eq_table": 1}:
         raise RuntimeError(f"eq-table launches a SpartanSNARK prove: {eq_prove}")
     print(f"eq-table launches a SpartanSNARK prove: {json.dumps(eq_prove)} (the outer "
           "sum-check's 20 tables in one sp2_eq_tables launch)", flush=True)
+    # outer: m Gruen rounds (G, F, and G's binds: round 0's peeled
+    # inner0_bind_dev, then m - 1 bind_dev); inner: kernel B's round 0, then
+    # mq quad rounds of kernel A (the first plain, the rest with the bind
+    # folded in) and one final bind_dev; an F a round
+    m, mq = S.num_cons.bit_length() - 1, S.num_vars.bit_length() - 1
+    sumcheck_counts({**sc_prove, "round_finish": per_prove["round_finish"]},
+                    {"sp2_round_evals": 1, "sp2_round_bind_evals": mq - 1,
+                     "sp2_bind_dev": m, "sp2_inner0_bind_dev": 2, "sp2_inner0_evals": 1,
+                     "sp2_bind": 0, "round_finish": m + 1 + mq}, "SpartanSNARK")
     with record() as spans_verify:
         t0 = time.perf_counter()
         if SpartanSNARK.verify(proof, vk) != circuit.public_values():
@@ -1022,8 +1160,8 @@ def run_spartan_zk(engine, S, circuit, dev, kernels):
     launches = {k.name: dict(k.entry_launches) for k in kernels}
     needed = {"spmv": ["sp2_spmv"], "comb": ["sp2_comb_rows"],
               "hyrax_bind": ["sp2_hyrax_bind"],
-              "sumcheck": ["sp2_eq_table", "sp2_round_evals", "sp2_bind",
-                           "sp2_inner0_evals", "sp2_inner0_bind"]}
+              "sumcheck": ["sp2_eq_table", "sp2_round_evals", "sp2_round_bind_evals",
+                           "sp2_bind", "sp2_inner0_evals", "sp2_inner0_bind"]}
     for name, entries in needed.items():
         for e in entries:
             if per_prove[name].get(e, 0) <= 0:
@@ -1031,6 +1169,13 @@ def run_spartan_zk(engine, S, circuit, dev, kernels):
     for e in ("sp2_msm", "sp2_msm_rows"):
         if launches["msm"].get(e, 0) <= 0:
             raise RuntimeError(f"msm.{e} was not launched by the ZK verify")
+    # two sum-checks on kernel A (the outer cubic, m rounds; the inner quad
+    # after kernel B's round 0, mq rounds): each its first round plain, the
+    # rest with the bind folded in, and one final sp2_bind
+    m, mq = S.num_cons.bit_length() - 1, S.num_vars.bit_length() - 1
+    sumcheck_counts(per_prove["sumcheck"],
+                    {"sp2_round_evals": 2, "sp2_round_bind_evals": m + mq - 2, "sp2_bind": 2,
+                     "sp2_inner0_evals": 1, "sp2_inner0_bind": 1}, "SpartanZkSNARK")
 
     blob = spartan_zk_proof_to_bytes(proof, engine)
     back = spartan_zk_proof_from_bytes(blob, engine)
@@ -1169,8 +1314,9 @@ def run_neutronnova(engine, dev, kernels):
           f"3 x {grid[1]} x {grid[2]} grid", flush=True)
     path = {"spmv": ["sp2_spmv", "sp2_spmv_batched"], "comb": ["sp2_comb_rows"],
             "hyrax_bind": ["sp2_hyrax_bind"], "msm": ["sp2_msm_rows"],
-            "sumcheck": ["sp2_pow_table", "sp2_eq_table", "sp2_round_evals", "sp2_bind",
-                         "sp2_inner0_evals", "sp2_inner0_bind"],
+            "sumcheck": ["sp2_pow_table", "sp2_eq_table", "sp2_round_evals",
+                         "sp2_round_bind_evals", "sp2_bind", "sp2_inner0_evals",
+                         "sp2_inner0_bind"],
             "nifs": ["sp2_nifs_round", "sp2_nifs_fold", "sp2_weighted_fold",
                      "sp2_nifs_to_small"] + (["sp2_nifs_small_round"] if small_ok else [])}
     for name, entries in path.items():
@@ -1184,6 +1330,10 @@ def run_neutronnova(engine, dev, kernels):
             ("sp2_nifs_small_round",) if small_ok else ()):
         if per_prove["nifs"].get(e, 0) <= 0:
             raise RuntimeError(f"nifs.{e} was not launched by a timed NN prove")
+    m, mq = S.num_cons.bit_length() - 1, S.num_vars.bit_length() - 1
+    sumcheck_counts(per_prove["sumcheck"],
+                    {"sp2_round_evals": 2, "sp2_round_bind_evals": m + mq - 2, "sp2_bind": 2,
+                     "sp2_inner0_evals": 1, "sp2_inner0_bind": 1}, "NeutronNovaZkSNARK")
 
     blob = neutronnova_proof_to_bytes(proof, engine)
     back = neutronnova_proof_from_bytes(blob, engine)
@@ -1297,13 +1447,20 @@ def compare_nn_kernels(pk, prep, proof, nn_launches: dict):
                    lambda: nifs_round_plain(g2[0], g2[1], g2[2], E, w4, r1, True, F))
     same_or_raise("nifs_round folded grid", g1[:, : I // 2], g2[:, : I // 2], F)
     del g1, g2
-    copies = iter([ABC.clone() for _ in range(reps + 1)])
+    # the prove's round t = 1 (after the small-value round 0): its wrapper
+    # pulls [e0, quad] to the host, so CUDA events include that round trip;
+    # the profiler's device time is the kernels' own (fold, sums, reduce)
+    copies = iter([ABC.clone() for _ in range(2 * reps + 2)])
     ms = cuda_ms(lambda: nifs_round(*next(copies), E, w4, r1, True, F), reps)
+    dms = device_ms(lambda: nifs_round(*next(copies), E, w4, r1, True, F), reps)
     del copies
     record("nifs_round", "spartan2_tpu/sumcheck/zk_device.py:365",
-           nifs_calls.get("sp2_nifs_round", 0), "sp2_nifs_round entry calls", ms, pms,
+           nifs_calls.get("sp2_nifs_round", 0), "sp2_nifs_round entry calls (3 a prove: "
+           "rounds t = 1, 2, 3; this is t = 1's shape, a 16-instance grid folded to 8)",
+           ms, pms,
            3 * I * n * 32 + 3 * (I // 2) * n * 32 + n * 32 + (I // 4) * 32 + 2 * 32,
            3 * (I // 2) * n + 4 * (I // 4) * n)
+    out[-1]["device_ms"] = dms
     # the final fold 2 -> 1
     g1, g2 = ABC[:, :2].clone(), ABC[:, :2].clone()
     nifs_fold(g1[0], g1[1], g1[2], r1, F)
@@ -1528,7 +1685,7 @@ def _compressed(coeffs, F):
     return [[v[k * j]] + v[k * j + 2 : k * j + k] for j in range(coeffs.shape[0])]
 
 
-def check_sumchecks(pk, prep, circuit, launches: dict, expect_peeled: bool = True):
+def check_sumchecks(pk, prep, circuit, launches: dict, probe, expect_peeled: bool = True):
     """(c)-(e): the device-transcript sum-checks against the host-challenge
     drivers and their plain versions; kernels F and G against their plain
     versions at the main path's shapes -> (kernel records, details)."""
@@ -1536,10 +1693,11 @@ def check_sumchecks(pk, prep, circuit, launches: dict, expect_peeled: bool = Tru
     from spartan2_tpu_torch.snark.spartan import SpartanSNARK
     from spartan2_tpu_torch.sumcheck.device import (
         CUBIC, DOT, cubiceq_evals, cubiceq_evals_plain, eq_factors, eq_table,
-        round_evals, round_partials)
+        round_evals, round_sums)
     from spartan2_tpu_torch.sumcheck.prove import (
-        CUBIC_EVALS, GRUEN, SumcheckProverCubic, SumcheckProverCubicEq, challenge,
-        prove_cubic_eq, prove_quad, round_finish)
+        _NCOEFFS, CUBIC_EVALS, GRUEN, INNER0, QUAD_EVALS, SumcheckProverCubic,
+        SumcheckProverCubicEq, challenge, prove_cubic_eq, prove_quad, round_finish)
+    from tools.round_latency import F_DEPTH, F_PERMUTATIONS, f_latency_floor
     from spartan2_tpu_torch.sumcheck.zk_device import inner_round0
     from spartan2_tpu_torch.transcript.device import DeviceTranscript
     from spartan2_tpu_torch.transcript.transcript import Transcript
@@ -1682,54 +1840,241 @@ def check_sumchecks(pk, prep, circuit, launches: dict, expect_peeled: bool = Tru
         cuda_ms(lambda: cubiceq_evals(A, B, C, *r1_args, False, False, F), 10), pms1,
         3 * half * 32 + (L0 + R) * 32, 5 * (half // 2)))
 
-    # kernel F at the peeled round 0: its partial sums, a claim, P, state
+    # kernel F in every mode against its plain version: the Gruen modes on
+    # kernel G's partial sums of the peeled round 0 (zero_check, as the
+    # prove runs it) and of round 1 (plain, and with fallback: tau = 0),
+    # CUBIC_EVALS on kernel A's sums at 2^m, QUAD and INNER0 on random sums
+    eqt = eq_table(eq_factors(taus, F, dev), F)
+    part_c = round_sums(CUBIC, 1 << m, [eqt, A, B, C], F)
+    gen_f = torch.Generator().manual_seed(44)
+    part_r1 = cubiceq_evals(A, B, C, *r1_args, False, True, F)
+
+    def gruen_consts(t):
+        return to_device([(1 - t) % p, (2 * t - 1) % p, (2 - 3 * t) % p,
+                          pow(t, -1, p) if t else 0], F, dev, mont=True)
+
     ctx = torch.cat([to_device([0, 1], F, dev, mont=True),
                      td.state.view(torch.int32).reshape(2, 8)])
-    consts = to_device([(1 - taus[0]) % p, (2 * taus[0] - 1) % p, (2 - 3 * taus[0]) % p,
-                        pow(taus[0], -1, p)], F, dev, mont=True)
-    slots = [torch.empty(4, 8, dtype=torch.int32, device=dev),
-             torch.empty(2, 8, dtype=torch.int32, device=dev)]
-    ctx_k = ctx.clone()
-    round_finish(GRUEN, part, ctx_k, *slots, 9, F, consts, True, False)
-    cpu = [t.cpu() for t in (part, ctx, consts)]
-    cslots = [torch.empty(4, 8, dtype=torch.int32), torch.empty(2, 8, dtype=torch.int32)]
-    _, pms = once_ms(lambda: round_finish(GRUEN, cpu[0], cpu[1], *cslots, 9, F, cpu[2],
-                                          True, False))
-    if not (torch.equal(ctx_k.cpu(), cpu[1]) and all(
-            torch.equal(a.cpu(), b) for a, b in zip(slots, cslots))):
-        raise RuntimeError("kernel F differs from its plain version")
-    print("equal to plain: round_finish (Gruen, peeled round 0)", flush=True)
-    # F's CUBIC_EVALS mode on kernel A CUBIC's partial sums at 2^m
-    eqt = eq_table(eq_factors(taus, F, dev), F)
-    part_c = round_partials(CUBIC, 1 << m, [eqt, A, B, C], F)
-    ctx_c = torch.cat([to_device([random.Random(43).randrange(p), 1], F, dev, mont=True),
+    ctx_r = torch.cat([to_device([random.Random(43).randrange(p),
+                                  random.Random(45).randrange(p)], F, dev, mont=True),
                        td.state.view(torch.int32).reshape(2, 8)])
-    ctx_ck = ctx_c.clone()
-    round_finish(CUBIC_EVALS, part_c, ctx_ck, *slots, 9, F)
-    cpu_c = [t.cpu() for t in (part_c, ctx_c)]
-    _, pms_c = once_ms(lambda: round_finish(CUBIC_EVALS, cpu_c[0], cpu_c[1], *cslots, 9, F))
-    if not (torch.equal(ctx_ck.cpu(), cpu_c[1]) and all(
-            torch.equal(a.cpu(), b) for a, b in zip(slots, cslots))):
-        raise RuntimeError("kernel F (CUBIC_EVALS) differs from its plain version")
-    print(f"equal to plain: round_finish (cubic evals, kernel A CUBIC at 2^{m})", flush=True)
+    consts = gruen_consts(taus[0])
+    f_cases = [
+        ("gruen, zero_check (peeled round 0)", GRUEN, part, ctx, consts, True, False),
+        ("gruen (round 1's sums)", GRUEN, part_r1, ctx_r, gruen_consts(taus[1]), False,
+         False),
+        ("gruen, fallback (tau = 0)", GRUEN, part_r1, ctx_r, gruen_consts(0), False, True),
+        (f"cubic evals (kernel A CUBIC at 2^{m})", CUBIC_EVALS, part_c, ctx_r, None, False,
+         False),
+        ("quad", QUAD_EVALS, rand_field(2, F, gen_f, dev).reshape(1, 2, 8), ctx_r, None,
+         False, False),
+        ("inner0", INNER0, rand_field(3, F, gen_f, dev).reshape(1, 3, 8), ctx_r, None, False,
+         False)]
+    f_ms = {}
+    for name, mode, sums, cx, cs, zc, fb in f_cases:
+        slots = [torch.empty(_NCOEFFS[mode], 8, dtype=torch.int32, device=dev),
+                 torch.empty(2, 8, dtype=torch.int32, device=dev)]
+        ctx_k = cx.clone()
+        round_finish(mode, sums, ctx_k, *slots, 9, F, cs, zc, fb)
+        cpu = [t.cpu() for t in (sums, cx)]
+        cslots = [torch.empty_like(t, device="cpu") for t in slots]
+        cs_cpu = None if cs is None else cs.cpu()
+        _, pms = once_ms(lambda: round_finish(mode, cpu[0], cpu[1], *cslots, 9, F, cs_cpu,
+                                              zc, fb))
+        if not (torch.equal(ctx_k.cpu(), cpu[1]) and all(
+                torch.equal(a.cpu(), b) for a, b in zip(slots, cslots))):
+            raise RuntimeError(f"kernel F ({name}) differs from its plain version")
+        ctxs = iter([cx.clone() for _ in range(42)])
+
+        def f_run():
+            round_finish(mode, sums, next(ctxs), *slots, 9, F, cs, zc, fb)
+
+        f_ms[name] = {"ms": cuda_ms(f_run, 20), "device_ms": device_ms(f_run, 20),
+                      "plain_ms": pms, "rows": sums.shape[0]}
+        print(f"equal to plain: round_finish ({name}, {sums.shape[0]} rows of sums)",
+              flush=True)
+    floor = f_latency_floor(probe, F, "gruen")
+    print(f"kernel F latency floor (Gruen): {F_DEPTH['gruen']} products in sequence at "
+          f"{floor['mul_cc_us']:.4f} us (fe_mul_cc) and {F_PERMUTATIONS} warp-wide "
+          f"permutations at {floor['permutation_us']:.4f} us: "
+          f"{floor['latency_floor_ms']:.5f} ms; by mode (ms a launch, CUDA events / device): "
+          + json.dumps(f_ms), flush=True)
     msg_len = 1 + 3 * 32 + 4 + 2 + 64 + 1
-    out.append(kernel_record(
+    peel = f_ms[f_cases[0][0]]
+    rec = kernel_record(
         "round_finish", "spartan2_tpu/sumcheck/prove.py:188", launches["round_finish"],
         NONZK_COUNTS + " (one sp2_round_finish per sum-check round, outer and inner)",
-        cuda_ms(lambda: round_finish(GRUEN, part, ctx.clone(), *slots, 9, F, consts, True,
-                                     False), 20), pms,
+        peel["ms"], peel["plain_ms"],
         # Gruen algebra 7 products, 3 from_mont, from_uniform 2, Horner 3, P 2
         part.numel() * 4 + 4 * 32 + 5 * 32 + 4 * 32 + 2 * 32 + 4 * 32, 15.5,
         source="spartan2_tpu_torch/csrc/round_finish.cu",
-        int_ops=2 * keccak_blocks(msg_len + 1) * KECCAK_F_OPS))
-    # from_evals4 about 3 products, 3 from_mont, from_uniform 2, Horner 3
-    detail.append(detail_record(
-        "round_finish cubic evals (sc_cubic_step's round algebra and squeeze)",
-        cuda_ms(lambda: round_finish(CUBIC_EVALS, part_c, ctx_c.clone(), *slots, 9, F), 20),
-        pms_c, part_c.numel() * 4 + 4 * 32 + 4 * 32 + 2 * 32 + 4 * 32, 9.5,
-        int_ops=2 * keccak_blocks(msg_len + 1) * KECCAK_F_OPS))
+        int_ops=2 * keccak_blocks(msg_len + 1) * KECCAK_F_OPS)
+    rec.update({"latency_floor_ms": floor["latency_floor_ms"], "device_ms": peel["device_ms"],
+                "mul_cc_us": floor["mul_cc_us"], "permutation_us": floor["permutation_us"]})
+    out.append(rec)
+    for name, rec_f in f_ms.items():
+        if name != f_cases[0][0]:
+            detail.append({"name": f"round_finish {name}", **rec_f})
+    detail.append({"name": "keccak_f1600 one warp (us)", "us": floor["permutation_us"]})
     return out, detail
 
+
+
+def _capture(body, refill) -> "torch.cuda.CUDAGraph":
+    """body() captured in a CUDA graph after a warm-up run on a side stream;
+    refill() sets the captured buffers' inputs first.  A host
+    synchronization or a pageable copy inside body() fails the capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        refill()
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    refill()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        body()
+    torch.cuda.synchronize()
+    return graph
+
+
+def check_graphs(pk, prep, circuit) -> list:
+    """The enqueued outer and inner sum-checks at SHA-256 1 KiB's 2^20,
+    on kernels F, G, A and B, each captured whole in a torch.cuda.CUDAGraph
+    (their rounds, with the plan, eq tables and context uploaded before):
+    the capture proves that no round synchronizes with the host.  The
+    graph is replayed on two sets of fresh inputs copied into its buffers
+    (Az/Bz/Cz random below eff and zero past it, abc and z random, a
+    random transcript state and claim), each against an uncaptured run of
+    the prove's own sum-check (SpartanSNARK.outer_sumcheck,
+    inner_sumcheck) on the same inputs: coefficients, challenges, finals
+    and transcript state equal -> detail records (replay and enqueue ms)."""
+    from spartan2_tpu_torch.field.limbs import to_device
+    from spartan2_tpu_torch.snark.spartan import SpartanSNARK
+    from spartan2_tpu_torch.sumcheck.device import inner0_bind_dev, inner0_sums
+    from spartan2_tpu_torch.sumcheck.prove import (
+        INNER0, SumcheckProverCubicEq, SumcheckProverQuad, round_finish)
+    from spartan2_tpu_torch.transcript.device import DeviceTranscript
+
+    inp = _sumcheck_inputs(pk, prep, circuit)
+    F, dev = pk.engine.scalar, pk.device
+    p = F.modulus
+    taus, eff, nv, ne = inp["taus"], inp["eff"], inp["nv"], inp["ne"]
+    m, mq = len(taus), nv.bit_length() - 1
+    n = 1 << m
+    i32 = torch.int32
+
+    def fresh_state(seed):
+        rb = random.Random(seed)
+        return torch.tensor([rb.randrange(256) for _ in range(64)], dtype=torch.uint8,
+                            device=dev)
+
+    def ctx_of(claim, state):
+        return torch.cat([to_device([claim, 1], F, dev, mont=True),
+                          state.view(i32).reshape(2, 8)])
+
+    # the outer sum-check: m Gruen rounds (G, F, G's binds)
+    prover = SumcheckProverCubicEq(F)
+    plan = prover.plan(taus, True, dev)
+    hi = prover.upper_live(n, eff)
+    r_out = inp["t_outer"][1]
+    o = {"v": torch.empty(3, n, 8, dtype=i32, device=dev),
+         "ctx": torch.empty(4, 8, dtype=i32, device=dev),
+         "coeffs": torch.empty(m, 4, 8, dtype=i32, device=dev),
+         "rs": torch.empty(m, 2, 8, dtype=i32, device=dev)}
+    o_in = {}
+
+    def outer_body():
+        v = o["v"]
+        prover.rounds(plan, o["ctx"], o["coeffs"], o["rs"], r_out, [v[0], v[1], v[2]], n,
+                      0, m, hi)
+
+    def outer_refill():
+        o["v"].copy_(o_in["v"])
+        o["ctx"].copy_(o_in["ctx"])
+
+    def outer_inputs(seed):
+        gen = torch.Generator().manual_seed(seed)
+        v = rand_field(3 * n, F, gen, dev).reshape(3, n, 8)
+        v[:, eff:] = 0
+        return {"v": v, "ctx": ctx_of(0, fresh_state(seed)), "state": fresh_state(seed)}
+
+    o_in.update(outer_inputs(50))
+    outer_graph = _capture(outer_body, outer_refill)
+
+    # the inner sum-check: kernel B's round 0 (its sums, F, its bind), then
+    # mq quad rounds of kernel A and F, and the last bind
+    quad = SumcheckProverQuad(F)
+    r_in = inp["t_inner"][1]
+    rows = inp["abc"].shape[0]
+    q = {"abc": torch.empty(rows, 8, dtype=i32, device=dev),
+         "z": torch.empty(inp["z"].shape[0], 8, dtype=i32, device=dev),
+         "ctx": torch.empty(4, 8, dtype=i32, device=dev),
+         "coeffs": torch.empty(1 + mq, 3, 8, dtype=i32, device=dev),
+         "rs": torch.empty(1 + mq, 2, 8, dtype=i32, device=dev)}
+    q_in = {}
+
+    def inner_body():
+        abc, z = q["abc"], q["z"]
+        sums = inner0_sums(abc, z, nv, ne, F)
+        round_finish(INNER0, sums, q["ctx"], q["coeffs"][0], q["rs"][0], r_in, F)
+        inner0_bind_dev([abc, z], q["rs"][0], nv, ne, F)
+        quad.rounds(q["ctx"], q["coeffs"][1:], q["rs"][1:], r_in + 1, [abc[:nv], z[:nv]],
+                    nv, 0, mq)
+
+    def inner_refill():
+        for k in ("abc", "z", "ctx"):
+            q[k].copy_(q_in[k])
+
+    def inner_inputs(seed):
+        gen = torch.Generator().manual_seed(seed)
+        abc = rand_field(rows, F, gen, dev)
+        z = rand_field(q["z"].shape[0], F, gen, dev)
+        abc[nv + ne:] = 0
+        z[nv + ne:] = 0
+        claim = random.Random(seed).randrange(p)
+        return {"abc": abc, "z": z, "claim": claim, "state": fresh_state(seed + 1),
+                "ctx": ctx_of(claim, fresh_state(seed + 1))}
+
+    q_in.update(inner_inputs(60))
+    inner_graph = _capture(inner_body, inner_refill)
+
+    detail = []
+    for seed in (51, 52):
+        o_in.update(outer_inputs(seed))
+        outer_refill()
+        _, replay_ms = _timed(outer_graph.replay)
+        td = DeviceTranscript(F, state=o_in["state"].clone(), round=r_out)
+        (c, rx, fin), enq_ms = _timed(lambda: SpartanSNARK.outer_sumcheck(
+            F, td, o_in["v"].clone(), taus, eff))
+        v = o["v"]
+        if not (torch.equal(o["coeffs"], c) and torch.equal(o["rs"], rx)
+                and torch.equal(torch.stack([v[0][0], v[1][0], v[2][0]]), torch.stack(fin))
+                and torch.equal(o["ctx"][2:].reshape(-1).view(torch.uint8), td.state)):
+            raise RuntimeError("the outer sum-check's CUDA graph differs from the "
+                               "uncaptured run")
+        q_in.update(inner_inputs(seed + 10))
+        inner_refill()
+        _, inner_replay_ms = _timed(inner_graph.replay)
+        td = DeviceTranscript(F, state=q_in["state"].clone(), round=r_in)
+        claim = to_device([q_in["claim"]], F, dev, mont=True)[0]
+        (ci, ry, ez), inner_enq_ms = _timed(lambda: SpartanSNARK.inner_sumcheck(
+            F, td, q_in["abc"].clone(), q_in["z"].clone(), claim, nv, ne))
+        if not (torch.equal(q["coeffs"], ci) and torch.equal(q["rs"], ry)
+                and torch.equal(q["z"][0], ez)
+                and torch.equal(q["ctx"][2:].reshape(-1).view(torch.uint8), td.state)):
+            raise RuntimeError("the inner sum-check's CUDA graph differs from the "
+                               "uncaptured run")
+        detail.append({"name": f"CUDA graphs, inputs {seed}", "outer_replay_ms": replay_ms,
+                       "outer_enqueued_ms": enq_ms, "inner_replay_ms": inner_replay_ms,
+                       "inner_enqueued_ms": inner_enq_ms})
+    print(f"CUDA graphs: the enqueued outer sum-check (2^{m}, {m} rounds) and inner "
+          f"sum-check (round 0 and {mq} quad rounds) captured whole, no host "
+          "synchronization; replayed on two sets of fresh inputs, equal to uncaptured runs "
+          "(coefficients, challenges, finals, state): " + json.dumps(detail), flush=True)
+    return detail
 
 
 def check_pallas(dev) -> list:
@@ -2496,6 +2841,7 @@ def run_mesh(pk, prep, nn_pk, blobs: dict, cfg: dict = MAIN_CFG):
         cuda_ms(lambda: round_evals_batched(QUAD, nq, vq, F), 10),
         shard_plain(f"round_evals quad (inner shard, {nq} rows)", QUAD, nq, vq),
         2 * nq * 32, nq))
+    detail[-1]["device_ms"] = sums_device_ms(QUAD, nq, vq, F)
     nc = nn_pk.S_step.num_cons // MESH_W
     E = rand_field(nc, F, gen, dev)
     vk3 = [rand_field(2 * nc, F, gen, dev).reshape(2, nc, 8) for _ in range(3)]
@@ -2505,6 +2851,7 @@ def run_mesh(pk, prep, nn_pk, blobs: dict, cfg: dict = MAIN_CFG):
         shard_plain(f"round_evals cubic K = 2 (NN outer shard, {nc} rows)", CUBIC, nc,
                     [E, *vk3]),
         (nc + 6 * nc) * 32, 2 * 6 * (nc // 2)))
+    detail[-1]["device_ms"] = sums_device_ms(CUBIC, nc, [E, *vk3], F)
     ncub = S.num_cons // MESH_W
     vc4 = [rand_field(ncub, F, gen, dev) for _ in range(4)]
     detail.append(detail_record(
@@ -2513,6 +2860,7 @@ def run_mesh(pk, prep, nn_pk, blobs: dict, cfg: dict = MAIN_CFG):
         shard_plain(f"round_evals cubic (explicit-eq shard, {ncub} rows)", CUBIC, ncub,
                     vc4),
         4 * ncub * 32, 6 * (ncub // 2)))  # per pair: A B and eq (A B - C) at 0, 2, 3
+    detail[-1]["device_ms"] = sums_device_ms(CUBIC, ncub, vc4, F)
     nzq = nn_pk.S_step.num_vars // MESH_W
     vzq = [rand_field(2 * nzq, F, gen, dev).reshape(2, nzq, 8) for _ in range(2)]
     detail.append(detail_record(
@@ -2521,6 +2869,20 @@ def run_mesh(pk, prep, nn_pk, blobs: dict, cfg: dict = MAIN_CFG):
         shard_plain(f"round_evals quad K = 2 (NN inner shard, {nzq} rows)", QUAD, nzq,
                     vzq),
         4 * nzq * 32, 2 * nzq))
+    detail[-1]["device_ms"] = sums_device_ms(QUAD, nzq, vzq, F)
+    # kernel A's rounds with the bind folded in, at the same shard shapes
+    r_sh = random.Random(10).randrange(p)
+    for name, mode, rows, vecs in (("shard_quad_step", QUAD, nq, vq),
+                                   ("shard_zkc_evals K = 2", CUBIC, nc, [E, *vk3]),
+                                   ("shard_cubic_step", CUBIC, ncub, vc4),
+                                   ("shard_zkq_evals K = 2", QUAD, nzq, vzq)):
+        ms, pms, dms = bind_first_case(
+            f"{name}, bind-first over a W = {MESH_W} shard, {rows} rows", mode, rows, vecs,
+            r_sh, F, 10)
+        detail.append(detail_record(
+            f"{name}: bind-first round over a W = {MESH_W} shard, {rows} -> {rows // 2} rows",
+            ms, pms, *bind_first_bound(mode, rows, vecs)))
+        detail[-1]["device_ms"] = dms
     per = scp.shape[0] // MESH_W
     mine = scp[:per].contiguous()
     want, cpms = once_ms(lambda: comb_rows_plain(mine, comb.table, comb.curve))
@@ -2548,14 +2910,16 @@ def main() -> int:
     from spartan2_tpu_torch.provider.engines import get_engine
     from spartan2_tpu_torch.utils.cuda import build_all
     from tools.curve_latency import dbl_chain_probe
+    from tools.round_latency import latency_probe
 
     card = card_line()
     print(f"card: {card}", flush=True)
     kernels = _path_kernels()
     spartan_kernels = kernels[:-1]  # all but NIFS
-    probe = dbl_chain_probe()
-    print(f"build: {build_all([*kernels, probe]):.1f} s (nvcc, {len(kernels) + 1} sources "
-          "in parallel: the kernels and the ladder doubling's probe)", flush=True)
+    probe, f_probe = dbl_chain_probe(), latency_probe()
+    print(f"build: {build_all([*kernels, probe, f_probe]):.1f} s (nvcc, {len(kernels) + 2} "
+          "sources in parallel: the kernels, the ladder doubling's probe and kernel F's "
+          "chains)", flush=True)
     print(f"host C build: {build_host_c():.2f} s (cc: native/keccak.c, "
           "native/ec_host.c)", flush=True)
     h_detail = check_host_curve()
@@ -2576,7 +2940,8 @@ def main() -> int:
     for name in ("square", "precommitted"):
         check_golden_nn(dev, name)
     t_out, t_detail = check_transcript(dev, launches)
-    s_out, s_detail = check_sumchecks(pk, prep, circuit, launches)
+    s_out, s_detail = check_sumchecks(pk, prep, circuit, launches, f_probe)
+    g_detail = check_graphs(pk, prep, circuit)
     out, detail = compare_kernels(pk, prep, proof, launches)
     zk_out, zk_detail = compare_zk_kernels(pk.S, zk_proof, proof, zk_launches)
     nn_out, nn_detail = compare_nn_kernels(nn_pk, nn_prep, nn_proof, nn_launches)
@@ -2589,8 +2954,8 @@ def main() -> int:
     f_out, f_detail = check_curve(dev)
     m_out, m_detail = run_mesh(pk, prep, nn_pk, {"spartan": blob, "nn": nn_blob})
     print("kernel details (ms, bound_ms): " + json.dumps(
-        detail + zk_detail + nn_detail + t_detail + s_detail + p_detail + msm_detail
-        + f_detail + m_detail + h_detail), flush=True)
+        detail + zk_detail + nn_detail + t_detail + s_detail + g_detail + p_detail
+        + msm_detail + f_detail + m_detail + h_detail), flush=True)
     print(json.dumps({"kernels": out + zk_out + nn_out + t_out + s_out + f_out + m_out}),
           flush=True)
     print(card, flush=True)

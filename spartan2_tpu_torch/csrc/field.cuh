@@ -16,8 +16,10 @@
 // fe_mul_cc, fe_add_cc and fe_sub_cc compute the same values on PTX carry
 // chains, with fewer instructions on a dependent chain (one thread on the
 // H100: 0.50 against 0.92 us a product, 0.038 against 0.089 us an
-// addition, tools/curve_latency.py); the windowed MSM and the eq tables,
-// latency-bound, use them.
+// addition, tools/curve_latency.py); the windowed MSM, the eq tables, the
+// sum-check rounds (kernel A) and the round finish (kernel F) use them.
+// Acc keeps a sum of unreduced 512-bit products (fe_mul_acc) and reduces
+// it once (acc_reduce): kernel A's sums of products.
 // The plain PyTorch version is spartan2_tpu_torch/field/ops.py.
 #pragma once
 
@@ -300,8 +302,9 @@ __device__ __forceinline__ void cc_add_even(uint32_t x[9], const uint32_t a[8], 
 // multiplies and one chain of their own, so two independent chains run
 // beside each other; the row ends by merging u into t >> 32.  Bounds: T <
 // 2p at a row's start (t[8] <= 1), at most 4 * 2^256 inside it (t[8] <=
-// 3), u < 2 * 2^256.  Used by the MSM (msm.cu) and eq-table (sumcheck.cu)
-// kernels; every other kernel keeps fe_mul.
+// 3), u < 2 * 2^256.  Used by the MSM (msm.cu), the eq tables and kernel A
+// (sumcheck.cu) and kernel F (round_finish.cu); every other kernel keeps
+// fe_mul.
 __device__ __forceinline__ Fe fe_mul_cc(const Fe& a, const Fe& b, const Field& F) {
   uint32_t t[9], u[9];
 #pragma unroll
@@ -333,6 +336,136 @@ __device__ __forceinline__ Fe fe_mul_cc(const Fe& a, const Fe& b, const Field& F
     t[8] = cc_addc_end(u[8], 0);
   }
   return fe_reduce_cc(t, t[8], F);
+}
+
+// lo + r (hi - lo): the bind of one pair, on the carry chains.
+__device__ __forceinline__ Fe fe_bind_cc(const Fe& lo, const Fe& hi, const Fe& r,
+                                         const Field& F) {
+  return fe_add_cc(lo, fe_mul_cc(r, fe_sub_cc(hi, lo, F), F), F);
+}
+
+// A sum of unreduced products a b < p^2 (at most 2^32 of them): 17 words.
+struct Acc {
+  uint32_t w[17];
+};
+
+__device__ __forceinline__ Acc acc_zero() {
+  Acc a;
+#pragma unroll
+  for (int i = 0; i < 17; ++i) a.w[i] = 0;
+  return a;
+}
+
+// acc += a b (512 bits, no reduction).  The product is formed in a fresh
+// 16-word w, per word b_i on two carry chains as in fe_mul_cc (the even
+// limbs' 64-bit products of a do not overlap, nor the odd ones'): before
+// row i the product is below 2^(256 + 32 i), so each chain's carry lands
+// in a word that held at most 1 and cannot overflow (the last row's odd
+// carry is 0).  Then one chain adds w into the accumulator.
+__device__ __forceinline__ void fe_mul_acc(Acc& acc, const Fe& a, const Fe& b) {
+  uint32_t w[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) w[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t bi = b.v[i];
+    w[i] = cc_mad_lo(a.v[0], bi, w[i]);
+    w[i + 1] = cc_madc_hi(a.v[0], bi, w[i + 1]);
+#pragma unroll
+    for (int j = 2; j < 8; j += 2) {
+      w[i + j] = cc_madc_lo(a.v[j], bi, w[i + j]);
+      w[i + j + 1] = cc_madc_hi(a.v[j], bi, w[i + j + 1]);
+    }
+    w[i + 8] = cc_addc_end(w[i + 8], 0);
+    w[i + 1] = cc_mad_lo(a.v[1], bi, w[i + 1]);
+    w[i + 2] = cc_madc_hi(a.v[1], bi, w[i + 2]);
+#pragma unroll
+    for (int j = 3; j < 8; j += 2) {
+      w[i + j] = cc_madc_lo(a.v[j], bi, w[i + j]);
+      w[i + j + 1] = cc_madc_hi(a.v[j], bi, w[i + j + 1]);
+    }
+    if (i + 9 < 16) w[i + 9] = cc_addc_end(w[i + 9], 0);
+  }
+  acc.w[0] = cc_add(acc.w[0], w[0]);
+#pragma unroll
+  for (int j = 1; j < 16; ++j) acc.w[j] = cc_addc(acc.w[j], w[j]);
+  acc.w[16] = cc_addc_end(acc.w[16], 0);
+}
+
+// acc += x (both sums of products).
+__device__ __forceinline__ void acc_add(Acc& acc, const Acc& x) {
+  acc.w[0] = cc_add(acc.w[0], x.w[0]);
+#pragma unroll
+  for (int j = 1; j < 16; ++j) acc.w[j] = cc_addc(acc.w[j], x.w[j]);
+  acc.w[16] = cc_addc_end(acc.w[16], x.w[16]);
+}
+
+// t[i .. 17] += m p 2^(32 i) (one Montgomery reduction row): the even and
+// the odd limbs' products on one chain each, the carry rippled to word 17.
+__device__ __forceinline__ void acc_redc_row(uint32_t t[18], int i, uint32_t m,
+                                             const Field& F) {
+  t[i] = cc_mad_lo(F.p[0], m, t[i]);
+  t[i + 1] = cc_madc_hi(F.p[0], m, t[i + 1]);
+#pragma unroll
+  for (int j = 2; j < 8; j += 2) {
+    t[i + j] = cc_madc_lo(F.p[j], m, t[i + j]);
+    t[i + j + 1] = cc_madc_hi(F.p[j], m, t[i + j + 1]);
+  }
+#pragma unroll
+  for (int k = i + 8; k < 17; ++k) t[k] = cc_addc(t[k], 0);
+  t[17] = cc_addc_end(t[17], 0);
+  t[i + 1] = cc_mad_lo(F.p[1], m, t[i + 1]);
+  t[i + 2] = cc_madc_hi(F.p[1], m, t[i + 2]);
+#pragma unroll
+  for (int j = 3; j < 8; j += 2) {
+    t[i + j] = cc_madc_lo(F.p[j], m, t[i + j]);
+    t[i + j + 1] = cc_madc_hi(F.p[j], m, t[i + j + 1]);
+  }
+#pragma unroll
+  for (int k = i + 9; k < 17; ++k) t[k] = cc_addc(t[k], 0);
+  t[17] = cc_addc_end(t[17], 0);
+}
+
+// The canonical acc R^-1 mod p: the Montgomery sum of the products, equal
+// to the sum of their fe_mul_cc.  Eight reduction rows leave T = (acc + M
+// p) / 2^256 < 2^289 in words 8 .. 17; T = h 2^256 + l with h < 2^33, and
+// T mod p = h R mod p (fe_mul_cc(h, R^2)) + (l mod p, by at most 7
+// subtractions: 2^256 < 8 p for the port's fields).
+__device__ __forceinline__ Fe acc_reduce(const Acc& acc, const Field& F) {
+  uint32_t t[18];
+#pragma unroll
+  for (int i = 0; i < 17; ++i) t[i] = acc.w[i];
+  t[17] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc_redc_row(t, i, t[i] * F.n0, F);
+  Fe h = fe_zero(), r2, l;
+  h.v[0] = t[16];
+  h.v[1] = t[17];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    r2.v[i] = F.r2[i];
+    l.v[i] = t[8 + i];
+  }
+  for (int it = 0; it < 8; ++it) {  // l mod p
+    uint32_t d[8];
+    d[0] = cc_sub(l.v[0], F.p[0]);
+#pragma unroll
+    for (int i = 1; i < 8; ++i) d[i] = cc_subc(l.v[i], F.p[i]);
+    if (cc_subc_end(0, 0)) break;  // borrow: l < p
+#pragma unroll
+    for (int i = 0; i < 8; ++i) l.v[i] = d[i];
+  }
+  return fe_add_cc(fe_mul_cc(h, r2, F), l, F);
+}
+
+// A value another block wrote: loads that skip this SM's L1.
+__device__ __forceinline__ Fe fe_load_cg(const uint32_t* base, size_t i) {
+  const uint4* q = reinterpret_cast<const uint4*>(base + 8 * i);
+  const uint4 a = __ldcg(q), b = __ldcg(q + 1);
+  Fe r;
+  r.v[0] = a.x; r.v[1] = a.y; r.v[2] = a.z; r.v[3] = a.w;
+  r.v[4] = b.x; r.v[5] = b.y; r.v[6] = b.z; r.v[7] = b.w;
+  return r;
 }
 
 __device__ __forceinline__ Fe fe_from_mont(const Fe& a, const Field& F) {
@@ -396,6 +529,34 @@ __device__ __forceinline__ Fe block_sum(Fe x, const Field& F) {
   }
   __syncthreads();
   return x;
+}
+
+// Sums of NS values a thread over a block of NT threads, side by side: a
+// shuffle tree a warp, then warp 0 over the warps' sums (on the carry
+// chains); the results are valid in thread 0.
+template <int NT, int NS>
+__device__ __forceinline__ void block_sums(Fe* s, const Field& F) {
+  __shared__ Fe ws[NT / 32][NS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int t = 0; t < NS; ++t) s[t] = fe_add_cc(s[t], fe_shfl_down(s[t], off), F);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int t = 0; t < NS; ++t) ws[warp][t] = s[t];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int t = 0; t < NS; ++t) s[t] = lane < NT / 32 ? ws[lane][t] : fe_zero();
+#pragma unroll
+    for (int off = NT / 64; off > 0; off >>= 1) {
+#pragma unroll
+      for (int t = 0; t < NS; ++t) s[t] = fe_add_cc(s[t], fe_shfl_down(s[t], off), F);
+    }
+  }
 }
 
 // Block sums of up to three per-thread sums into partial[(y, b, t)] for

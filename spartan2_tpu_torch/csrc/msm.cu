@@ -73,15 +73,6 @@ constexpr int MSM_GROUP_MAX = 8;  // points of a row a block takes at most
 using MsmOps = OpsCC;             // the field arithmetic of the MSM's group law
 
 // A point another block wrote: loads that skip this SM's L1.
-__device__ __forceinline__ Fe fe_load_cg(const uint32_t* base, size_t i) {
-  const uint4* q = reinterpret_cast<const uint4*>(base + 8 * i);
-  const uint4 a = __ldcg(q), b = __ldcg(q + 1);
-  Fe r;
-  r.v[0] = a.x; r.v[1] = a.y; r.v[2] = a.z; r.v[3] = a.w;
-  r.v[4] = b.x; r.v[5] = b.y; r.v[6] = b.z; r.v[7] = b.w;
-  return r;
-}
-
 __device__ __forceinline__ Pt pt_load_cg(const uint32_t* base, size_t i) {
   Pt p;
   p.X = fe_load_cg(base, 3 * i);

@@ -12,13 +12,14 @@
 // :102/:116, zk_quad_step/_final :190/:201: kernel A) and the structured
 // inner round 0 (zk_device.py zk_inner0_evals/_bind :284/:308, which
 // also serves the non-ZK SpartanInnerRound0, sumcheck/prove.py:627:
-// kernel B).  A non-ZK round is this file's partial sums (out = NULL
-// leaves them per block), the round finish (round_finish.cu: the round
+// kernel B).  A round is one launch of kernel A: with the previous round's
+// bind folded in (sp2_round_bind_evals, as the JAX steps' bind_first,
+// zk_device.py:60-67), its sums finished by the last block to arrive.  A
+// non-ZK round adds the round finish (round_finish.cu: the round
 // polynomial, the device transcript's squeeze, r and 1 - r into device
-// memory) and a bind that reads r from there (sp2_bind_dev,
-// sp2_inner0_bind_dev), all enqueued with no host round trip.  The ZK and
-// NeutronNova rounds take their challenges from the host (a reduced
-// evaluation launch, a pull, sp2_bind with r by value).
+// memory), whose r the next round's bind reads there; the ZK and
+// NeutronNova rounds pull their sums and pass the host's challenge by
+// value.  Each sum-check ends with one plain bind (sp2_bind, sp2_bind_dev).
 //
 // Entries:
 //   sp2_eq_table     out[i] = prod_j (bit_j(i) ? r_j : 1 - r_j), where r_0
@@ -35,11 +36,18 @@
 //                    significant index bit, as in the eq table.
 //   sp2_round_evals  per instance k < K (instance k's vectors start k *
 //                    stride elements after the first; the eq vector is
-//                    shared), per-block partial sums then one reduction
-//                    block per instance:
+//                    shared), the sums, into out (K x sums):
 //                    CUBIC  sum_j eq(X) (A(X) B(X) - C(X)) at X = 0, 2, 3
 //                    QUAD   sum_j A_lo B_lo and sum_j (A_hi-A_lo)(B_hi-B_lo)
 //                    DOT    sum_j A_j B_j
+//                    each block's sums to partial, then the last block to
+//                    take the atomic ticket adds them (and zeroes the ticket).
+//   sp2_round_bind_evals  the same CUBIC or QUAD round over vectors that
+//                    still carry the previous round's variable: each thread
+//                    binds its four quarter-rows with r (by value, or read
+//                    from r_dev) in registers, writes the bound halves in
+//                    place and sums from them; the shared eq of K > 1
+//                    instances is bound into a second buffer, eq_out.
 //   sp2_bind         x_j <- x_lo_j + r (x_hi_j - x_lo_j) for up to four
 //                    vectors of K instances (or one, for a shared vector),
 //                    in place into the low half.
@@ -47,7 +55,8 @@
 //                    num_cols = num_vars + num_extra (nothing past it is
 //                    read; the virtual 2 num_vars domain is zero there):
 //                    sum_{j<num_vars} abc_j z_j, sum_{j<num_extra} abc_j z_j
-//                    and sum_{j<num_extra} (abc_{nv+j} - abc_j)(z_{nv+j} - z_j).
+//                    and sum_{j<num_extra} (abc_{nv+j} - abc_j)(z_{nv+j} - z_j),
+//                    finished as kernel A's.
 //   sp2_inner0_bind  in place into width num_vars: x_j + r (x_{nv+j} - x_j)
 //                    for j < num_extra, (1 - r) x_j for the rest.
 //   sp2_bind_dev, sp2_inner0_bind_dev  the same binds of up to four vectors
@@ -61,11 +70,15 @@
 // Bound: the eq table writes 2^m elements of 32 bytes and needs one
 // Montgomery product each; at 2^20 the products bound it (16 us at the
 // card's multiply rate, 10 us of stores); the outer plan's 20 small tables
-// are latency: a block's chain is about 12 products.  A cubic round reads
-// 4 halves-pairs (256 bytes per pair) and does 6 Montgomery products per
-// pair; the products bound it.  Round 0
-// of the inner sum-check reads abc and z once at width num_cols instead
-// of the padded 2 num_vars, and does num_vars + 2 num_extra products.
+// are latency: a block's chain is about 12 products.  A cubic round with
+// its bind reads the four vectors' 4 quarter-rows (512 bytes a pair),
+// writes 256 bytes, and does 8 bind products, 3 reduced and 3 unreduced
+// products a pair on the carry chains: the products bound it.  Past two
+// blocks an SM a thread takes several pairs, so that its one reduction a
+// sum is amortized; below, a pair a thread keeps the short rounds'
+// latency to one pair's chain.  Round 0 of the inner sum-check reads abc and z once at width
+// num_cols instead of the padded 2 num_vars, and does num_vars + 2
+// num_extra products.
 
 #include "field.cuh"
 
@@ -75,6 +88,11 @@ constexpr int NT = 256;
 constexpr int MODE_CUBIC = 0;
 constexpr int MODE_QUAD = 1;
 constexpr int MODE_DOT = 2;
+// Kernel A's and B's grid: a pair (an entry for DOT) a thread up to
+// ROUND_MAX_BLOCKS blocks, two an SM of the H100's 132 (at 160-170
+// registers a thread one block of NT fits an SM), more pairs a thread past
+// that.
+constexpr int ROUND_MAX_BLOCKS = 264;
 
 // Tables of one eq-table launch: table k has m[k] variables, its factors
 // [r_0 .. r_{m-1}, 1 - r_0 .. 1 - r_{m-1}] at rs[fac[k]], its 2^m[k]
@@ -164,87 +182,175 @@ __global__ void pow_table_kernel(int m, const Fe* gs, uint32_t* out, Field F) {
   }
 }
 
-// Instance blockIdx.y's vector: ``stride`` elements of 8 words apart.
-__device__ __forceinline__ const uint32_t* inst(const uint32_t* v, size_t stride) {
-  return v + (size_t)blockIdx.y * stride * 8;
+// Instance k's vector: ``stride`` elements of 8 words apart.
+__device__ __forceinline__ uint32_t* inst(uint32_t* v, int k, size_t stride) {
+  return v + (size_t)k * stride * 8;
 }
 
-template <int MODE>
-__global__ void round_evals_kernel(size_t half, size_t stride, const uint32_t* eq,
-                                   const uint32_t* A, const uint32_t* B,
-                                   const uint32_t* C, uint32_t* partial,
-                                   Field F) {
-  A = inst(A, stride);
-  B = inst(B, stride);
-  if (MODE == MODE_CUBIC) C = inst(C, stride);
-  Fe s0 = fe_zero(), s1 = fe_zero(), s2 = fe_zero();
-  for (size_t j = blockIdx.x * (size_t)NT + threadIdx.x; j < half;
+// Pair j of a round over 2q rows: (x[j], x[q + j]).  With BIND the vector
+// still carries the previous round's variable over 4q rows: the pair is
+// bound with r from its four quarter-rows x[j], x[q + j], x[2q + j],
+// x[3q + j] and written back in place (each thread writes only the rows
+// j, q + j of its own pairs and reads no row another thread writes).
+template <bool BIND>
+__device__ __forceinline__ void load_pair(uint32_t* x, size_t q, size_t j, const Fe& r,
+                                          Fe& lo, Fe& hi, const Field& F) {
+  if (BIND) {
+    lo = fe_bind_cc(fe_load(x, j), fe_load(x, 2 * q + j), r, F);
+    hi = fe_bind_cc(fe_load(x, q + j), fe_load(x, 3 * q + j), r, F);
+    fe_store(x, j, lo);
+    fe_store(x, q + j, hi);
+  } else {
+    lo = fe_load(x, j);
+    hi = fe_load(x, q + j);
+  }
+}
+
+// This block's NS sums of instance k into partial[k, block, t].
+template <int NS>
+__device__ __forceinline__ void store_block_sums(int k, Fe* s, uint32_t* partial,
+                                                 const Field& F) {
+  block_sums<NT, NS>(s, F);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int t = 0; t < NS; ++t)
+      fe_store(partial, ((size_t)k * gridDim.x + blockIdx.x) * NS + t, s[t]);
+  }
+}
+
+// The last block to arrive (an atomic ticket behind a fence) adds every
+// block's partials, a warp a sum: out[k, t] = sum_b partial[k, b, t] over
+// the instances k = blockIdx.y of the grid; it
+// sets the ticket back to 0 for the next launch.  Field sums are exact, so
+// the order the blocks arrive in does not matter.
+template <int NS>
+__device__ __forceinline__ void finish_sums(const uint32_t* partial, uint32_t* out,
+                                            unsigned* ticket, const Field& F) {
+  __shared__ int last;
+  const int K = gridDim.y;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int kt = warp; kt < K * NS; kt += NT / 32) {
+    const int k = kt / NS, t = kt % NS;
+    Fe s = fe_zero();
+    for (int b = lane; b < (int)gridDim.x; b += 32)
+      s = fe_add_cc(s, fe_load_cg(partial, ((size_t)k * gridDim.x + b) * NS + t), F);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s = fe_add_cc(s, fe_shfl_down(s, off), F);
+    if (lane == 0) fe_store(out, kt, s);
+  }
+  if (threadIdx.x == 0) *ticket = 0;
+}
+
+// Kernel A: the round's sums of K instances (instance k's A, B, C start k
+// stride rows after the first; eq is shared), one launch, a grid row
+// (blockIdx.y) an instance.  With BIND every instance binds the shared eq
+// from eq's unbound rows in registers, and instance 0's blocks write it to
+// eq_out: in place when K = 1, else into a second buffer, since another
+// instance's block may still read the rows it would overwrite.  Each
+// product that only feeds a sum is added unreduced (fe_mul_acc) and
+// reduced once a thread and sum (acc_reduce).
+template <int MODE, bool BIND>
+__global__ void __launch_bounds__(NT) round_kernel(size_t work, size_t stride, uint32_t* eq,
+                                                   uint32_t* eq_out, uint32_t* A, uint32_t* B,
+                                                   uint32_t* C, Fe r, const uint32_t* r_dev,
+                                                   uint32_t* partial, uint32_t* out,
+                                                   unsigned* ticket, Field F) {
+  constexpr int NS = MODE == MODE_CUBIC ? 3 : (MODE == MODE_QUAD ? 2 : 1);
+  if (BIND && r_dev != nullptr) r = fe_load(r_dev, 0);
+  const size_t q = work;
+  const int k = blockIdx.y;
+  uint32_t* a = inst(A, k, stride);
+  uint32_t* b = inst(B, k, stride);
+  Acc s0 = acc_zero(), s1 = acc_zero(), s2 = acc_zero();
+  for (size_t j = blockIdx.x * (size_t)NT + threadIdx.x; j < q;
        j += (size_t)gridDim.x * NT) {
     if (MODE == MODE_DOT) {
-      s0 = fe_add(s0, fe_mul(fe_load(A, j), fe_load(B, j), F), F);
+      fe_mul_acc(s0, fe_load(a, j), fe_load(b, j));
     } else if (MODE == MODE_QUAD) {
-      Fe a0 = fe_load(A, j), a1 = fe_load(A, half + j);
-      Fe b0 = fe_load(B, j), b1 = fe_load(B, half + j);
-      s0 = fe_add(s0, fe_mul(a0, b0, F), F);
-      s1 = fe_add(s1, fe_mul(fe_sub(a1, a0, F), fe_sub(b1, b0, F), F), F);
+      Fe a0, a1, b0, b1;
+      load_pair<BIND>(a, q, j, r, a0, a1, F);
+      load_pair<BIND>(b, q, j, r, b0, b1, F);
+      fe_mul_acc(s0, a0, b0);
+      fe_mul_acc(s1, fe_sub_cc(a1, a0, F), fe_sub_cc(b1, b0, F));
     } else {
-      Fe e0 = fe_load(eq, j), a0 = fe_load(A, j), b0 = fe_load(B, j), c0 = fe_load(C, j);
-      Fe de = fe_sub(fe_load(eq, half + j), e0, F);
-      Fe da = fe_sub(fe_load(A, half + j), a0, F);
-      Fe db = fe_sub(fe_load(B, half + j), b0, F);
-      Fe dc = fe_sub(fe_load(C, half + j), c0, F);
+      Fe e0, e1, a0, a1, b0, b1, c0, c1;
+      if (BIND) {
+        e0 = fe_bind_cc(fe_load(eq, j), fe_load(eq, 2 * q + j), r, F);
+        e1 = fe_bind_cc(fe_load(eq, q + j), fe_load(eq, 3 * q + j), r, F);
+        if (k == 0) {
+          fe_store(eq_out, j, e0);
+          fe_store(eq_out, q + j, e1);
+        }
+      } else {
+        e0 = fe_load(eq, j);
+        e1 = fe_load(eq, q + j);
+      }
+      load_pair<BIND>(a, q, j, r, a0, a1, F);
+      load_pair<BIND>(b, q, j, r, b0, b1, F);
+      load_pair<BIND>(inst(C, k, stride), q, j, r, c0, c1, F);
       // X = 0
-      s0 = fe_add(s0, fe_mul(e0, fe_sub(fe_mul(a0, b0, F), c0, F), F), F);
-      // X = 2: v(2) = v(0) + 2 d
-      Fe e2 = fe_add(e0, fe_double(de, F), F);
-      Fe a2 = fe_add(a0, fe_double(da, F), F);
-      Fe b2 = fe_add(b0, fe_double(db, F), F);
-      Fe c2 = fe_add(c0, fe_double(dc, F), F);
-      s1 = fe_add(s1, fe_mul(e2, fe_sub(fe_mul(a2, b2, F), c2, F), F), F);
+      fe_mul_acc(s0, e0, fe_sub_cc(fe_mul_cc(a0, b0, F), c0, F));
+      // X = 2: v(2) = v(1) + d, d = v(1) - v(0)
+      const Fe de = fe_sub_cc(e1, e0, F), da = fe_sub_cc(a1, a0, F);
+      const Fe db = fe_sub_cc(b1, b0, F), dc = fe_sub_cc(c1, c0, F);
+      e1 = fe_add_cc(e1, de, F);
+      a1 = fe_add_cc(a1, da, F);
+      b1 = fe_add_cc(b1, db, F);
+      c1 = fe_add_cc(c1, dc, F);
+      fe_mul_acc(s1, e1, fe_sub_cc(fe_mul_cc(a1, b1, F), c1, F));
       // X = 3: v(3) = v(2) + d
-      Fe e3 = fe_add(e2, de, F), a3 = fe_add(a2, da, F);
-      Fe b3 = fe_add(b2, db, F), c3 = fe_add(c2, dc, F);
-      s2 = fe_add(s2, fe_mul(e3, fe_sub(fe_mul(a3, b3, F), c3, F), F), F);
+      e1 = fe_add_cc(e1, de, F);
+      a1 = fe_add_cc(a1, da, F);
+      b1 = fe_add_cc(b1, db, F);
+      c1 = fe_add_cc(c1, dc, F);
+      fe_mul_acc(s2, e1, fe_sub_cc(fe_mul_cc(a1, b1, F), c1, F));
     }
   }
-  constexpr int NS = MODE == MODE_CUBIC ? 3 : (MODE == MODE_QUAD ? 2 : 1);
-  store_partials<NS, NT>(s0, s1, s2, partial, F);
+  Fe s[3];
+  s[0] = acc_reduce(s0, F);
+  if (NS > 1) s[1] = acc_reduce(s1, F);
+  if (NS > 2) s[2] = acc_reduce(s2, F);
+  store_block_sums<NS>(k, s, partial, F);
+  finish_sums<NS>(partial, out, ticket, F);
 }
 
-// out[k, t] = sum_b partial[k, b, t], one block per instance k
-__global__ void sum_partials_kernel(int nparts, int NS, const uint32_t* partial,
-                                    uint32_t* out, Field F) {
-  const size_t base = (size_t)blockIdx.x * nparts * NS;
-  for (int t = 0; t < NS; ++t) {
-    Fe s = fe_zero();
-    for (int b = threadIdx.x; b < nparts; b += NT)
-      s = fe_add(s, fe_load(partial, base + (size_t)b * NS + t), F);
-    s = block_sum<NT>(s, F);
-    if (threadIdx.x == 0) fe_store(out, (size_t)blockIdx.x * NS + t, s);
-  }
-}
-
-// The structured inner round 0 (kernel B): per instance blockIdx.y, the
-// three product sums over abc and z at width num_vars + num_extra.
-__global__ void inner0_evals_kernel(size_t num_vars, size_t num_extra, size_t stride,
-                                    const uint32_t* abc, const uint32_t* z,
-                                    uint32_t* partial, Field F) {
-  abc = inst(abc, stride);
-  z = inst(z, stride);
-  Fe s0 = fe_zero(), s1 = fe_zero(), s2 = fe_zero();
+// The structured inner round 0 (kernel B): per instance k = blockIdx.y, the
+// three product sums over abc and z at width num_vars + num_extra,
+// unreduced (one product feeds both eval0 and corr_low), finished like
+// kernel A's.
+__global__ void __launch_bounds__(NT) inner0_evals_kernel(size_t num_vars, size_t num_extra,
+                                                          size_t stride,
+                                                          const uint32_t* abc,
+                                                          const uint32_t* z,
+                                                          uint32_t* partial, uint32_t* out,
+                                                          unsigned* ticket, Field F) {
+  const int k = blockIdx.y;
+  const uint32_t* a_k = abc + (size_t)k * stride * 8;
+  const uint32_t* z_k = z + (size_t)k * stride * 8;
+  Acc s0 = acc_zero(), s1 = acc_zero(), s2 = acc_zero();
   for (size_t j = blockIdx.x * (size_t)NT + threadIdx.x; j < num_vars;
        j += (size_t)gridDim.x * NT) {
-    Fe a = fe_load(abc, j), x = fe_load(z, j);
-    Fe prod = fe_mul(a, x, F);
-    s0 = fe_add(s0, prod, F);
+    const Fe a = fe_load(a_k, j), x = fe_load(z_k, j);
     if (j < num_extra) {
-      s1 = fe_add(s1, prod, F);
-      Fe da = fe_sub(fe_load(abc, num_vars + j), a, F);
-      Fe dz = fe_sub(fe_load(z, num_vars + j), x, F);
-      s2 = fe_add(s2, fe_mul(da, dz, F), F);
+      Acc prod = acc_zero();
+      fe_mul_acc(prod, a, x);
+      acc_add(s0, prod);
+      acc_add(s1, prod);
+      fe_mul_acc(s2, fe_sub_cc(fe_load(a_k, num_vars + j), a, F),
+                 fe_sub_cc(fe_load(z_k, num_vars + j), x, F));
+    } else {
+      fe_mul_acc(s0, a, x);
     }
   }
-  store_partials<3, NT>(s0, s1, s2, partial, F);
+  Fe s[3] = {acc_reduce(s0, F), acc_reduce(s1, F), acc_reduce(s2, F)};
+  store_block_sums<3>(k, s, partial, F);
+  finish_sums<3>(partial, out, ticket, F);
 }
 
 struct Vec4 {
@@ -268,9 +374,7 @@ __global__ void bind_kernel(size_t half, size_t stride, int shared, Vec4 v, Fe r
   if (r_dev != nullptr) r = fe_load(r_dev, 0);
   for (size_t j = blockIdx.x * (size_t)blockDim.x + threadIdx.x; j < half;
        j += (size_t)gridDim.x * blockDim.x) {
-    Fe lo = fe_load(x, j);
-    Fe hi = fe_load(x, half + j);
-    fe_store(x, j, fe_add(lo, fe_mul(r, fe_sub(hi, lo, F), F), F));
+    fe_store(x, j, fe_bind_cc(fe_load(x, j), fe_load(x, half + j), r, F));
   }
 }
 
@@ -347,38 +451,71 @@ extern "C" int sp2_pow_table(int m, const void* gs, void* out,
   return (int)cudaGetLastError();
 }
 
+// Kernel A's and B's grid over ``work`` pairs (entries for DOT): the
+// wrapper sizes the partial sums by it.
+static int round_blocks(size_t work) {
+  const size_t b = (work + NT - 1) / NT;
+  return b < 1 ? 1 : (b > ROUND_MAX_BLOCKS ? ROUND_MAX_BLOCKS : (int)b);
+}
+
 static int check_instances(int K) {
   return (K < 1 || K > 65535) ? (int)cudaErrorInvalidValue : 0;
 }
 
-extern "C" int sp2_round_evals(int mode, size_t half, int K, size_t stride,
-                               const void* eq, const void* A, const void* B,
-                               const void* C, void* partial, int nblocks, void* out,
-                               const uint32_t* field_words, void* stream) {
-  Field F = field_from_words(field_words);
-  if (check_instances(K)) return check_instances(K);
-  cudaStream_t s = (cudaStream_t)stream;
-  const uint32_t *e = (const uint32_t*)eq, *a = (const uint32_t*)A,
-                 *b = (const uint32_t*)B, *c = (const uint32_t*)C;
-  uint32_t* part = (uint32_t*)partial;
-  dim3 grid((unsigned)nblocks, (unsigned)K);
-  int NS;
-  if (mode == MODE_CUBIC) {
-    round_evals_kernel<MODE_CUBIC><<<grid, NT, 0, s>>>(half, stride, e, a, b, c, part, F);
-    NS = 3;
-  } else if (mode == MODE_QUAD) {
-    round_evals_kernel<MODE_QUAD><<<grid, NT, 0, s>>>(half, stride, e, a, b, c, part, F);
-    NS = 2;
-  } else if (mode == MODE_DOT) {
-    round_evals_kernel<MODE_DOT><<<grid, NT, 0, s>>>(half, stride, e, a, b, c, part, F);
-    NS = 1;
-  } else {
+// Kernel A's launch: one grid of nblocks over the pairs (entries for DOT);
+// the sums land in out (K x sums), partial and ticket are its scratch.
+template <bool BIND>
+static int round_launch(int mode, size_t work, int K, size_t stride, void* eq, void* eq_out,
+                        void* A, void* B, void* C, Fe r, const void* r_dev, void* partial,
+                        int nblocks, void* out, void* ticket, const Field& F,
+                        cudaStream_t s) {
+  if (check_instances(K) || nblocks != round_blocks(work) || out == nullptr ||
+      ticket == nullptr)
     return (int)cudaErrorInvalidValue;
-  }
-  int err = (int)cudaGetLastError();
-  if (err || out == nullptr) return err;
-  sum_partials_kernel<<<K, NT, 0, s>>>(nblocks, NS, part, (uint32_t*)out, F);
+  if (eq_out == nullptr) eq_out = eq;
+  if (BIND && mode == MODE_CUBIC && K > 1 && eq_out == eq)
+    return (int)cudaErrorInvalidValue;  // the shared eq's bind needs its own buffer
+  uint32_t *e = (uint32_t*)eq, *eo = (uint32_t*)eq_out, *a = (uint32_t*)A,
+           *b = (uint32_t*)B, *c = (uint32_t*)C;
+  const uint32_t* rd = (const uint32_t*)r_dev;
+  uint32_t *part = (uint32_t*)partial, *o = (uint32_t*)out;
+  unsigned* t = (unsigned*)ticket;
+  const dim3 grid((unsigned)nblocks, (unsigned)K);
+  if (mode == MODE_CUBIC)
+    round_kernel<MODE_CUBIC, BIND><<<grid, NT, 0, s>>>(work, stride, e, eo, a, b, c, r, rd,
+                                                       part, o, t, F);
+  else if (mode == MODE_QUAD)
+    round_kernel<MODE_QUAD, BIND><<<grid, NT, 0, s>>>(work, stride, e, eo, a, b, c, r, rd,
+                                                      part, o, t, F);
+  else if (mode == MODE_DOT && !BIND)
+    round_kernel<MODE_DOT, false><<<grid, NT, 0, s>>>(work, stride, e, eo, a, b, c, r, rd,
+                                                      part, o, t, F);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+extern "C" int sp2_round_evals(int mode, size_t work, int K, size_t stride,
+                               void* eq, void* A, void* B, void* C, void* partial,
+                               int nblocks, void* out, void* ticket,
+                               const uint32_t* field_words, void* stream) {
+  return round_launch<false>(mode, work, K, stride, eq, nullptr, A, B, C, fe_zero_host(),
+                             nullptr, partial, nblocks, out, ticket,
+                             field_from_words(field_words), (cudaStream_t)stream);
+}
+
+// The bind of the previous round's r (host words, or r_dev when given)
+// folded into the round: the vectors carry 4 work rows, bound in place to
+// 2 work; the shared eq is bound into eq_out (in place when null).
+extern "C" int sp2_round_bind_evals(int mode, size_t work, int K, size_t stride,
+                                    void* eq, void* eq_out, void* A, void* B, void* C,
+                                    const uint32_t* r_words, const void* r_dev,
+                                    void* partial, int nblocks, void* out, void* ticket,
+                                    const uint32_t* field_words, void* stream) {
+  return round_launch<true>(mode, work, K, stride, eq, eq_out, A, B, C,
+                            r_dev != nullptr ? fe_zero_host() : fe_from_words(r_words),
+                            r_dev, partial, nblocks, out, ticket,
+                            field_from_words(field_words), (cudaStream_t)stream);
 }
 
 extern "C" int sp2_bind(size_t half, int K, size_t stride, int nvec, int shared,
@@ -407,19 +544,15 @@ extern "C" int sp2_bind_dev(size_t half, int nvec, void* v0, void* v1, void* v2,
 
 extern "C" int sp2_inner0_evals(size_t num_vars, size_t num_extra, int K,
                                 size_t stride, const void* abc, const void* z,
-                                void* partial, int nblocks, void* out,
+                                void* partial, int nblocks, void* out, void* ticket,
                                 const uint32_t* field_words, void* stream) {
   Field F = field_from_words(field_words);
-  if (check_instances(K) || num_extra > num_vars) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid((unsigned)nblocks, (unsigned)K);
-  inner0_evals_kernel<<<grid, NT, 0, s>>>(num_vars, num_extra, stride,
-                                          (const uint32_t*)abc, (const uint32_t*)z,
-                                          (uint32_t*)partial, F);
-  int err = (int)cudaGetLastError();
-  if (err || out == nullptr) return err;
-  sum_partials_kernel<<<K, NT, 0, s>>>(nblocks, 3, (const uint32_t*)partial,
-                                       (uint32_t*)out, F);
+  if (check_instances(K) || num_extra > num_vars || nblocks != round_blocks(num_vars) ||
+      out == nullptr || ticket == nullptr)
+    return (int)cudaErrorInvalidValue;
+  inner0_evals_kernel<<<dim3((unsigned)nblocks, (unsigned)K), NT, 0, (cudaStream_t)stream>>>(
+      num_vars, num_extra, stride, (const uint32_t*)abc, (const uint32_t*)z,
+      (uint32_t*)partial, (uint32_t*)out, (unsigned*)ticket, F);
   return (int)cudaGetLastError();
 }
 

@@ -8,10 +8,12 @@
 // inlined into every sum-check round's finish (round_finish.cu).
 //
 // Entries:
-//   sp2_keccak256  n messages of len bytes each (row-major), one thread per
-//                  message -> n digests of 32 bytes.
-//   sp2_squeeze    one block: buf || DOM_SEP_TAG || round || state || label
-//                  is hashed into the new 64-byte state (CUS); when chal is
+//   sp2_keccak256  n messages of len bytes each (row-major), one warp per
+//                  message (keccak.cuh's permutation) -> n digests of 32
+//                  bytes.
+//   sp2_squeeze    one block: buf || DOM_SEP_TAG || round || state || label,
+//                  built by the block's threads in shared memory, is hashed
+//                  into the new 64-byte state (CUS, two warps); when chal is
 //                  given, the state's from_uniform value in Montgomery form
 //                  is written there (DeviceTranscript.squeeze_mont).  state
 //                  may alias new_state.
@@ -19,9 +21,8 @@
 //                  encodings, little- or big-endian (the transcript's
 //                  scalar absorbs are big-endian).
 //
-// Bound: a squeeze is a chain of 4 permutations (2 blocks, 2 hashes; the
-// two hashes run in two threads), about 20 thousand 32-bit logic
-// operations on one thread: latency, far from any rate of the card.
+// Bound: a squeeze is a chain of 2 permutations (2 blocks; the two hashes
+// run in two warps): latency, far from any rate of the card.
 
 #include "field.cuh"
 #include "keccak.cuh"
@@ -29,7 +30,7 @@
 using namespace sp2;
 
 constexpr int MAX_LABEL = 64;
-constexpr int SQUEEZE_SUFFIX = 4 + 2 + 64 + MAX_LABEL;
+constexpr int NT = 128;
 
 struct Label {
   uint8_t b[MAX_LABEL];
@@ -37,25 +38,35 @@ struct Label {
 };
 
 __global__ void keccak256_kernel(int n, int len, const uint8_t* msgs, uint8_t* out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) keccak256(msgs + (size_t)i * len, len, -1, out + (size_t)i * 32);
+  const int i = blockIdx.x * (NT / 32) + (threadIdx.x >> 5), l = threadIdx.x & 31;
+  if (i >= n) return;  // the whole warp
+  const uint8_t* m = msgs + (size_t)i * len;
+  const uint64_t h = keccak256_warp([&](int w) { return message_word(m, len, w); }, len, -1);
+  if (l < 4)
+    for (int b = 0; b < 8; ++b) out[(size_t)i * 32 + 8 * l + b] = (uint8_t)(h >> (8 * b));
 }
 
 __global__ void squeeze_kernel(int buf_len, const uint8_t* buf, int round,
                                const uint8_t* state, Label label, uint8_t* new_state,
                                uint32_t* chal, Field F) {
   extern __shared__ uint8_t msg[];
-  __shared__ uint8_t out[64];
-  __shared__ int len;
-  for (int i = threadIdx.x; i < buf_len; i += blockDim.x) msg[i] = buf[i];
+  __shared__ uint64_t out[8];
+  __shared__ uint8_t lab[MAX_LABEL];
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < MAX_LABEL; ++i)  // static indices: the label stays a parameter
+      if (i < label.len) lab[i] = label.b[i];
+  }
   __syncthreads();
-  if (threadIdx.x == 0)
-    len = squeeze_message(msg, buf_len, round, state, label.b, label.len);
+  const int len = buf_len + SQUEEZE_SUFFIX + label.len;
+  for (int i = threadIdx.x; i < len; i += blockDim.x)
+    msg[i] = i < buf_len ? buf[i] : squeeze_suffix_byte(i - buf_len, round, state, lab);
   __syncthreads();
-  cus_half(msg, len, out);
+  cus_warps([&](int w) { return message_word(msg, len, w); }, len, out);
   __syncthreads();
-  if (threadIdx.x < 64) new_state[threadIdx.x] = out[threadIdx.x];
-  if (threadIdx.x == 0 && chal != nullptr) fe_store(chal, 0, fe_from_uniform(out, F));
+  const uint8_t* o = reinterpret_cast<const uint8_t*>(out);
+  if (threadIdx.x < 64) new_state[threadIdx.x] = o[threadIdx.x];
+  if (threadIdx.x == 0 && chal != nullptr) fe_store(chal, 0, fe_from_uniform(o, F));
 }
 
 __global__ void fe_bytes_kernel(size_t n, const uint32_t* a, uint8_t* out, int big_endian,
@@ -71,7 +82,7 @@ __global__ void fe_bytes_kernel(size_t n, const uint32_t* a, uint8_t* out, int b
 extern "C" int sp2_keccak256(int n, int len, const void* msgs, void* out, void* stream) {
   if (n < 0 || len < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  keccak256_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+  keccak256_kernel<<<(n + NT / 32 - 1) / (NT / 32), NT, 0, (cudaStream_t)stream>>>(
       n, len, (const uint8_t*)msgs, (uint8_t*)out);
   return (int)cudaGetLastError();
 }
@@ -79,14 +90,14 @@ extern "C" int sp2_keccak256(int n, int len, const void* msgs, void* out, void* 
 extern "C" int sp2_squeeze(int buf_len, const void* buf, int round, const void* state,
                            const uint8_t* label, int label_len, void* new_state,
                            void* chal, const uint32_t* field_words, void* stream) {
-  const size_t smem = (size_t)buf_len + SQUEEZE_SUFFIX;
+  const size_t smem = (size_t)buf_len + SQUEEZE_SUFFIX + MAX_LABEL;
   if (buf_len < 0 || label_len < 0 || label_len > MAX_LABEL || round < 0 ||
       round > 0xFFFF || smem > 48 * 1024)
     return (int)cudaErrorInvalidValue;
   Label lb;
   for (int i = 0; i < label_len; ++i) lb.b[i] = label[i];
   lb.len = label_len;
-  squeeze_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(
+  squeeze_kernel<<<1, NT, smem, (cudaStream_t)stream>>>(
       buf_len, (const uint8_t*)buf, round, (const uint8_t*)state, lb,
       (uint8_t*)new_state, (uint32_t*)chal, field_from_words(field_words));
   return (int)cudaGetLastError();

@@ -6,13 +6,17 @@ of a Gruen eq-split round; with their plain versions.
 Vectors are (n, 8) int32 Montgomery tensors, or (K, n, 8) for K
 instances.  On CUDA tensors each
 wrapper launches the kernel (or raises); on CPU tensors it runs the plain
-PyTorch version.  ``round_evals*`` and ``inner0_evals`` return canonical
-Python ints (the host-challenge drivers squeeze from them); the
-``*_partials`` and ``cubiceq_evals`` wrappers leave per-block partial sums
-on the device, (nblocks, sums, 8) Montgomery (one block on the CPU), for
-the round finish (sumcheck/prove.py ``round_finish``), and
-``bind_dev``/``inner0_bind_dev`` read the challenge from the device
-slot [r, 1 - r] the finish wrote.
+PyTorch version.  Kernel A's round is one launch: its sums finished on
+the card by the last block to arrive, and, in the ``*_bind`` entries and
+``round_sums`` given a challenge slot, the previous round's bind folded
+in (the JAX steps' ``bind_first``).  ``round_evals*`` and
+``inner0_evals`` return canonical Python ints (the host-challenge
+drivers squeeze from them); ``round_sums``, ``inner0_sums`` and
+``cubiceq_evals`` leave their sums on the device, (rows, sums, 8)
+Montgomery (kernel G one row a block), for the round finish
+(sumcheck/prove.py ``round_finish``), and ``bind_dev``/
+``inner0_bind_dev`` read the challenge from the device slot [r, 1 - r]
+the finish wrote.
 """
 
 from __future__ import annotations
@@ -30,9 +34,10 @@ SUMCHECK = CudaKernel("sumcheck", {
     "sp2_eq_table": [I, P, P, P],
     "sp2_eq_tables": [I, P, P, P, P],
     "sp2_pow_table": [I, P, P, P],
-    "sp2_round_evals": [I, SZ, I, SZ, P, P, P, P, P, I, P, P],
+    "sp2_round_evals": [I, SZ, I, SZ, P, P, P, P, P, I, P, P, P],
+    "sp2_round_bind_evals": [I, SZ, I, SZ, P, P, P, P, P, P, P, P, I, P, P, P],
     "sp2_bind": [SZ, I, SZ, I, I, P, P, P, P, P, P],
-    "sp2_inner0_evals": [SZ, SZ, I, SZ, P, P, P, I, P, P],
+    "sp2_inner0_evals": [SZ, SZ, I, SZ, P, P, P, I, P, P, P],
     "sp2_inner0_bind": [SZ, SZ, I, SZ, P, P, P, P, P],
     "sp2_bind_dev": [SZ, I, P, P, P, P, P, P],
     "sp2_inner0_bind_dev": [SZ, SZ, I, P, P, P, P, P, P],
@@ -44,7 +49,10 @@ CUBICEQ = CudaKernel("cubiceq", {
 CUBIC, QUAD, DOT = 0, 1, 2
 _NSUMS = {CUBIC: 3, QUAD: 2, DOT: 1}
 _NT = 256
-_MAX_BLOCKS = 1024
+_MAX_BLOCKS = 1024  # kernel G's grid
+# kernel A's and B's grid (csrc/sumcheck.cu round_blocks): a pair a thread,
+# at most ROUND_MAX_BLOCKS blocks
+_ROUND_MAX_BLOCKS = 264
 
 
 def _check_vecs(vecs: list, n: int) -> None:
@@ -68,8 +76,24 @@ def _instances(vecs: list) -> tuple[int, int]:
     return K, rows
 
 
-def _nblocks(work: int) -> int:
+def _g_blocks(work: int) -> int:
+    """Kernel G's grid: a pair a thread, at most _MAX_BLOCKS blocks."""
     return max(1, min(-(-work // _NT), _MAX_BLOCKS))
+
+
+def _nblocks(work: int) -> int:
+    """Kernel A's and B's grid, as csrc/sumcheck.cu's round_blocks, which
+    refuses another."""
+    return max(1, min(-(-work // _NT), _ROUND_MAX_BLOCKS))
+
+
+def new_ticket(device) -> torch.Tensor | None:
+    """Kernel A's and B's arrival counter on a CUDA device: zero, and zero
+    again after each launch (its last block resets it), so one serves a
+    whole sum-check; None on the CPU, where the plain versions need none."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.zeros(4, dtype=torch.int32, device=device)
 
 
 def _pull(out: torch.Tensor, spec: FieldSpec, K: int) -> list[list[int]]:
@@ -215,22 +239,43 @@ def round_evals_batched_plain(mode: int, n: int, vecs: list,
                           spec) for k in range(K)])
 
 
-def _round_launch(mode: int, n: int, vecs: list, spec: FieldSpec, reduce: bool):
-    """Launch kernel A -> (partial, out); out is None unless ``reduce``."""
+def _round_launch(mode: int, n: int, vecs: list, spec: FieldSpec, r=None, r_slot=None,
+                  ticket=None, eq_out=None) -> torch.Tensor:
+    """Launch kernel A over the round's n rows -> its sums (K, sums, 8);
+    given r (canonical) or r_slot (device [r, ...]) the vectors carry 2n
+    rows, bound first in place (the eq vector into ``eq_out`` if given)."""
     K, stride = _instances(vecs)
-    _check_vecs(vecs, n)
+    bound = r is not None or r_slot is not None
+    _check_vecs(vecs, 2 * n if bound else n)
+    if eq_out is not None:
+        _check_vecs([eq_out], n)
+    if bound and mode == CUBIC and K > 1 and eq_out is None:
+        raise ValueError("the shared eq of K > 1 instances is bound into eq_out")
     ns = _NSUMS[mode]
     work = n if mode == DOT else n // 2
     nblocks = _nblocks(work)
     dev = vecs[0].device
     partial = torch.empty(K * nblocks, ns, 8, dtype=torch.int32, device=dev)
-    out = torch.empty(K * ns, 8, dtype=torch.int32, device=dev) if reduce else None
+    out = torch.empty(K, ns, 8, dtype=torch.int32, device=dev)
+    if ticket is None:
+        ticket = new_ticket(dev)
     ptr = [v.data_ptr() for v in vecs]
     eq, A, B, C = ptr if mode == CUBIC else [None, ptr[0], ptr[1], None]
-    SUMCHECK.call("sp2_round_evals", mode, work, K, stride, eq, A, B, C,
-                  partial.data_ptr(), nblocks, None if out is None else out.data_ptr(),
-                  field_words(spec))
-    return partial, out
+    head = (mode, work, K, stride, eq, A, B, C)
+    tail = (partial.data_ptr(), nblocks, out.data_ptr(), ticket.data_ptr(),
+            field_words(spec))
+    if not bound:
+        SUMCHECK.call("sp2_round_evals", *head, *tail)
+    else:
+        eo = None if eq_out is None else eq_out.data_ptr()
+        if r_slot is not None:
+            check_cuda(r_slot)
+            rw, rd = None, r_slot.data_ptr()
+        else:
+            rw, rd = fe_words(spec.to_mont(r)), None
+        SUMCHECK.call("sp2_round_bind_evals", mode, work, K, stride, eq, eo, A, B, C, rw, rd,
+                      *tail)
+    return out
 
 
 def _check_round_vecs(mode: int, vecs: list) -> int:
@@ -260,22 +305,61 @@ def round_evals_batched(mode: int, n: int, vecs: list,
                  _check_round_vecs(mode, vecs))
 
 
-def round_sums_batched(mode: int, n: int, vecs: list, spec: FieldSpec) -> torch.Tensor:
+def round_sums_batched(mode: int, n: int, vecs: list, spec: FieldSpec,
+                       ticket=None) -> torch.Tensor:
     """``round_evals_batched`` left on the device: (K, sums, 8) Montgomery."""
-    K = _check_round_vecs(mode, vecs)
+    _check_round_vecs(mode, vecs)
     if vecs[0].device.type == "cpu":
         return round_evals_batched_plain(mode, n, vecs, spec)
-    return _round_launch(mode, n, vecs, spec, True)[1].view(K, _NSUMS[mode], 8)
+    return _round_launch(mode, n, vecs, spec, ticket=ticket)
 
 
-def round_partials(mode: int, n: int, vecs: list, spec: FieldSpec) -> torch.Tensor:
-    """Kernel A's sums of one instance (``round_evals``' CUBIC or QUAD),
-    left on the device as (nblocks, sums, 8) per-block partial sums."""
-    if _check_round_vecs(mode, vecs) != 1 or mode == DOT:
-        raise ValueError("round_partials: one instance, CUBIC or QUAD")
+def round_sums_bind_plain(mode: int, n: int, vecs: list, rr: torch.Tensor,
+                          spec: FieldSpec, eq_out=None) -> torch.Tensor:
+    """Plain version of the bind-first round: ``bind_mont_plain`` of the
+    first 2n rows, then ``round_evals_batched_plain`` over n; given
+    ``eq_out`` the eq vector (vecs[0]) is left as it was and its bound rows
+    go there."""
+    if eq_out is not None:
+        vecs = [vecs[0][: 2 * n].clone()] + list(vecs[1:])
+    bind_mont_plain(vecs, 2 * n, rr, spec)
+    if eq_out is not None:
+        eq_out[:n] = vecs[0][:n]
+    return round_evals_batched_plain(mode, n, vecs, spec)
+
+
+def round_sums_bind(mode: int, n: int, vecs: list, r: int, spec: FieldSpec,
+                    ticket=None, eq_out=None) -> torch.Tensor:
+    """Kernel A's round over n rows with the previous round's bind folded
+    in: ``vecs`` (CUBIC or QUAD, as ``round_evals_batched``) still carry
+    that round's variable over their first 2n rows; each is bound with r
+    (canonical) in place to n rows and the round's sums are taken from the
+    bound values, in one launch -> (K, sums, 8) Montgomery on the device.
+    The eq vector shared by K > 1 instances is read unbound by every
+    instance, so its bound rows go to ``eq_out`` (another (>= n, 8)
+    buffer; needed then) and vecs[0] is left as it was."""
+    _check_round_vecs(mode, vecs)
+    if mode == DOT:
+        raise ValueError("round_sums_bind: CUBIC or QUAD")
     if vecs[0].device.type == "cpu":
-        return round_evals_plain(mode, n, vecs, spec)[None]
-    return _round_launch(mode, n, vecs, spec, False)[0]
+        return round_sums_bind_plain(mode, n, vecs, ops.const(r, spec, device="cpu"), spec,
+                                     eq_out)
+    return _round_launch(mode, n, vecs, spec, r=r, ticket=ticket, eq_out=eq_out)
+
+
+def round_sums(mode: int, n: int, vecs: list, spec: FieldSpec, r_slot=None,
+               ticket=None) -> torch.Tensor:
+    """Kernel A's sums of one instance (``round_evals``' CUBIC or QUAD)
+    over n rows, left on the device as (1, sums, 8); given ``r_slot``
+    (the round finish's [r, 1 - r] of the previous round) the vectors
+    carry 2n rows and are bound with that r first, in the same launch."""
+    if _check_round_vecs(mode, vecs) != 1 or mode == DOT:
+        raise ValueError("round_sums: one instance, CUBIC or QUAD")
+    if vecs[0].device.type == "cpu":
+        if r_slot is None:
+            return round_evals_plain(mode, n, vecs, spec)[None]
+        return round_sums_bind_plain(mode, n, vecs, r_slot[0], spec)
+    return _round_launch(mode, n, vecs, spec, r_slot=r_slot, ticket=ticket)
 
 
 def round_evals(mode: int, n: int, vecs: list, spec: FieldSpec) -> list[int]:
@@ -382,18 +466,8 @@ def inner0_evals(abc: torch.Tensor, z: torch.Tensor, num_vars: int,
     if abc.device.type == "cpu":
         sums = _pull(inner0_evals_plain(abc, z, num_vars, num_extra, spec), spec, K)
     else:
-        _check_vecs([abc, z], num_vars + num_extra)
-        if abc.shape != z.shape:
-            raise ValueError("inner0: abc and z must have one shape")
-        nblocks = _nblocks(num_vars)
-        partial = torch.empty(K * nblocks * 3, 8, dtype=torch.int32,
-                              device=abc.device)
-        out = torch.empty(K * 3, 8, dtype=torch.int32, device=abc.device)
-        SUMCHECK.call("sp2_inner0_evals", num_vars, num_extra, K, stride,
-                      abc.data_ptr(), z.data_ptr(),
-                      partial.data_ptr(), nblocks, out.data_ptr(),
-                      field_words(spec))
-        sums = _pull(out, spec, K)
+        sums_dev = _inner0_launch(abc, z, num_vars, num_extra, spec)
+        sums = _pull(sums_dev, spec, K)
     p = spec.modulus
     return [(e0, (e0 - low + cross) % p) for e0, low, cross in sums]
 
@@ -454,20 +528,32 @@ def inner0_bind_dev(vecs: list, r_slot: torch.Tensor, num_vars: int, num_extra: 
                   r_slot.data_ptr(), field_words(spec))
 
 
-def inner0_partials(abc: torch.Tensor, z: torch.Tensor, num_vars: int, num_extra: int,
-                    spec: FieldSpec) -> torch.Tensor:
-    """Kernel B's sums (eval0, corr_low, corr_cross) of one instance,
-    left on the device as (nblocks, 3, 8) per-block partial sums."""
+def _inner0_launch(abc: torch.Tensor, z: torch.Tensor, num_vars: int, num_extra: int,
+                   spec: FieldSpec) -> torch.Tensor:
+    """Launch kernel B's sums -> (K, 3, 8) Montgomery on the device."""
+    _check_vecs([abc, z], num_vars + num_extra)
+    if abc.shape != z.shape:
+        raise ValueError("inner0: abc and z must have one shape")
+    K, stride = _instances([abc, z])
+    nblocks = _nblocks(num_vars)
+    dev = abc.device
+    partial = torch.empty(K * nblocks, 3, 8, dtype=torch.int32, device=dev)
+    out = torch.empty(K, 3, 8, dtype=torch.int32, device=dev)
+    SUMCHECK.call("sp2_inner0_evals", num_vars, num_extra, K, stride, abc.data_ptr(),
+                  z.data_ptr(), partial.data_ptr(), nblocks, out.data_ptr(),
+                  new_ticket(dev).data_ptr(), field_words(spec))
+    return out
+
+
+def inner0_sums(abc: torch.Tensor, z: torch.Tensor, num_vars: int, num_extra: int,
+                spec: FieldSpec) -> torch.Tensor:
+    """Kernel B's sums (eval0, corr_low, corr_cross) of one instance, left
+    on the device as (1, 3, 8) Montgomery."""
     if not 0 < num_extra <= num_vars or abc.dim() != 2:
-        raise ValueError("inner0_partials: one instance, 0 < num_extra <= num_vars")
+        raise ValueError("inner0_sums: one instance, 0 < num_extra <= num_vars")
     if abc.device.type == "cpu":
         return inner0_evals_plain(abc, z, num_vars, num_extra, spec)
-    _check_vecs([abc, z], num_vars + num_extra)
-    nblocks = _nblocks(num_vars)
-    partial = torch.empty(nblocks, 3, 8, dtype=torch.int32, device=abc.device)
-    SUMCHECK.call("sp2_inner0_evals", num_vars, num_extra, 1, 0, abc.data_ptr(),
-                  z.data_ptr(), partial.data_ptr(), nblocks, None, field_words(spec))
-    return partial
+    return _inner0_launch(abc, z, num_vars, num_extra, spec)
 
 
 # ---------------------------------------------------------------------------
@@ -531,7 +617,7 @@ def cubiceq_evals(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, half: int,
     if ER.shape[0] < (glob if EL is None else 1 << rlog) or (
             EL is not None and EL.shape[0] << rlog < glob):
         raise ValueError("cubiceq_evals: weight tables too short")
-    nblocks = _nblocks(half)
+    nblocks = _g_blocks(half)
     partial = torch.empty(nblocks, 3, 8, dtype=torch.int32, device=A.device)
     CUBICEQ.call("sp2_cubiceq_evals", half, hi_len, rlog, int(zero_check), int(fallback),
                  shard, lw, None if EL is None else EL.data_ptr(), ER.data_ptr(),

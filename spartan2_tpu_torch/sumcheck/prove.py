@@ -5,10 +5,13 @@ Device-transcript provers, the port of the JAX package's
 sumcheck/prove.py (SumcheckProverCubic :231, SumcheckProverQuad :304,
 SumcheckProverCubicEq :403, SpartanInnerRound0 :604, and the fused
 whole sum-checks of its sumcheck/fused.py): a round is its sums (kernel
-A, B or G, sumcheck/device.py) left as per-block partials on the device, the round
-finish (kernel F: the round polynomial, its absorb under b"p" and the
-squeeze of b"c" on the DeviceTranscript's state, the new claim, r and
-1 - r into device memory) and a bind that reads r there.  Every round is
+A, B or G, sumcheck/device.py) left on the device, and the round finish
+(kernel F: the round polynomial, its absorb under b"p" and the squeeze
+of b"c" on the DeviceTranscript's state, the new claim, r and 1 - r into
+device memory).  Kernel A's round binds the previous round's r, read
+there, in its own launch (the JAX steps' bind_first); a sum-check on A
+ends with one bind, and G's and B's rounds are each followed by theirs
+(bind_dev, inner0_bind_dev), which read r there too.  Every round is
 enqueued on the current stream and nothing is pulled: the outputs are
 stacked device tensors, coefficients (m, k, 8) and challenges (m, 2, 8)
 holding [r_j, 1 - r_j], Montgomery.  The JAX package fused whole
@@ -42,7 +45,7 @@ from ..transcript.device import DeviceTranscript
 from ..transcript.transcript import Transcript
 from ..utils.cuda import CudaKernel, I, P, check_cuda, fe_words, field_words
 from .device import (CUBIC, QUAD, bind_dev, cubiceq_evals, eq_factors, eq_table, eq_tables,
-                     inner0_bind_dev, inner0_partials, round_partials)
+                     inner0_bind_dev, inner0_sums, new_ticket, round_sums)
 from .verify import SumcheckProof
 from .zk_device import prove_zk_cubic, prove_zk_quad
 
@@ -182,7 +185,9 @@ def round_finish(mode: int, partial: torch.Tensor, ctx: torch.Tensor,
                  coeffs_out: torch.Tensor, r_out: torch.Tensor, round_: int,
                  spec: FieldSpec, consts=None, zero_check: bool = False,
                  fallback: bool = False) -> None:
-    """Kernel F: finish one round from its (nblocks, sums, 8) partial sums.
+    """Kernel F: finish one round from its sums, (rows, sums, 8) added up
+    (kernel A's or B's one row, kernel G's per-block partials, or the
+    ranks' gathered rows).
     ``ctx`` (4, 8): the running claim, eq prefix P and the 64-byte
     transcript state, updated in place; the round's coefficients go to
     ``coeffs_out`` (k, 8) and [r, 1 - r] to ``r_out`` (2, 8), Montgomery;
@@ -191,7 +196,7 @@ def round_finish(mode: int, partial: torch.Tensor, ctx: torch.Tensor,
     3), QUAD_EVALS (t0, tinf), INNER0 (kernel B's three sums)."""
     k = _NCOEFFS[mode]
     if partial.dim() != 3 or partial.shape[1:] != (_NSUMS[mode], 8):
-        raise ValueError("round_finish: partial sums must be (nblocks, sums, 8)")
+        raise ValueError("round_finish: the sums must be (rows, sums, 8)")
     if ctx.shape != (4, 8) or coeffs_out.shape != (k, 8) or r_out.shape != (2, 8):
         raise ValueError("round_finish: ctx (4, 8), coeffs (k, 8), r (2, 8)")
     if mode == GRUEN and (consts is None or consts.shape != (4, 8)):
@@ -245,10 +250,29 @@ def _close(td: DeviceTranscript, ctx: torch.Tensor, m: int) -> torch.Tensor:
     return ctx[0]
 
 
+def _rounds_on_a(spec: FieldSpec, mode: int, ctx, coeffs, rs, round0: int, vecs: list,
+                 n: int, j0: int, j1: int, gather=None) -> None:
+    """Rounds j0 .. j1 - 1 of kernel A's CUBIC (F's CUBIC_EVALS) or QUAD
+    (QUAD_EVALS) mode over the first n rows of ``vecs``: each round after
+    the first binds the one before it in its own launch, reading r from
+    that round's slot, and one bind follows the last round; ``gather``
+    joins a round's sums across ranks."""
+    fmode = CUBIC_EVALS if mode == CUBIC else QUAD_EVALS
+    ticket = new_ticket(vecs[0].device)
+    for j in range(j0, j1):
+        if j > j0:
+            n //= 2
+        sums = round_sums(mode, n, vecs, spec, rs[j - 1] if j > j0 else None, ticket)
+        round_finish(fmode, sums if gather is None else gather(sums), ctx, coeffs[j], rs[j],
+                     round0 + j, spec)
+    if j1 > j0:
+        bind_dev(vecs, n, rs[j1 - 1], spec)
+
+
 class SumcheckProverCubic:
     """sc_cubic_step's prover: claim = sum eq (A B - C) with the eq table
     materialized and bound as a fourth polynomial (kernel A CUBIC: sums
-    at 0, 2, 3; F from_evals4)."""
+    at 0, 2, 3, the bind folded in; F from_evals4)."""
 
     def __init__(self, spec: FieldSpec):
         self.spec = spec
@@ -265,14 +289,8 @@ class SumcheckProverCubic:
     def rounds(self, ctx, coeffs, rs, round0: int, vecs: list, n: int, j0: int, j1: int,
                gather=None) -> None:
         """Rounds j0 .. j1 - 1 over the first n rows of ``vecs`` (bound in
-        place); ``gather`` joins a round's partial sums across ranks."""
-        spec = self.spec
-        for j in range(j0, j1):
-            part = round_partials(CUBIC, n, vecs, spec)
-            round_finish(CUBIC_EVALS, part if gather is None else gather(part), ctx,
-                         coeffs[j], rs[j], round0 + j, spec)
-            bind_dev(vecs, n, rs[j], spec)
-            n //= 2
+        place); ``gather`` joins a round's sums across ranks."""
+        _rounds_on_a(self.spec, CUBIC, ctx, coeffs, rs, round0, vecs, n, j0, j1, gather)
 
 
 class SumcheckProverQuad:
@@ -283,7 +301,8 @@ class SumcheckProverQuad:
 
     def prove(self, td: DeviceTranscript, A, B, claim, num_rounds: int):
         """claim = sum_x A(x) B(x) over the first 2^num_rounds rows (bound
-        in place), every round kernel A's two sums, F and a bind
+        in place), every round one launch of kernel A (its two sums, the
+        previous round's bind folded in) and F, then one bind
         -> (coeffs (m, 3, 8), challenges (m, 2, 8), (A, B) finals, claim)."""
         ctx, coeffs, rs = _open(td, claim, one_dev(self.spec, A.device), num_rounds, 3)
         self.rounds(ctx, coeffs, rs, td.round, [A, B], 1 << num_rounds, 0, num_rounds)
@@ -292,14 +311,8 @@ class SumcheckProverQuad:
     def rounds(self, ctx, coeffs, rs, round0: int, vecs: list, n: int, j0: int, j1: int,
                gather=None) -> None:
         """Rounds j0 .. j1 - 1 over the first n rows of ``vecs`` (bound in
-        place); ``gather`` joins a round's partial sums across ranks."""
-        spec = self.spec
-        for j in range(j0, j1):
-            part = round_partials(QUAD, n, vecs, spec)
-            round_finish(QUAD_EVALS, part if gather is None else gather(part), ctx,
-                         coeffs[j], rs[j], round0 + j, spec)
-            bind_dev(vecs, n, rs[j], spec)
-            n //= 2
+        place); ``gather`` joins a round's sums across ranks."""
+        _rounds_on_a(self.spec, QUAD, ctx, coeffs, rs, round0, vecs, n, j0, j1, gather)
 
 
 def _upload_with_eq_tables(spec: FieldSpec, head: list[int], splits: list, device):
@@ -416,8 +429,8 @@ class SpartanInnerRound0:
         """-> (claim after round 0, challenge slot (2, 8), coeffs (3, 8))."""
         spec = self.spec
         ctx, coeffs, rs = _open(td, claim, one_dev(spec, abc.device), 1, 3)
-        part = inner0_partials(abc, z, num_vars, num_extra, spec)
-        round_finish(INNER0, part, ctx, coeffs[0], rs[0], td.round, spec)
+        sums = inner0_sums(abc, z, num_vars, num_extra, spec)
+        round_finish(INNER0, sums, ctx, coeffs[0], rs[0], td.round, spec)
         inner0_bind_dev([abc, z], rs[0], num_vars, num_extra, spec)
         return _close(td, ctx, 1), rs[0], coeffs[0]
 

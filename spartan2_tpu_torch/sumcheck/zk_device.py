@@ -5,10 +5,12 @@ circuit's commit protocol (MultiRoundState.process_round) instead of a
 plain transcript squeeze, so each round's challenge comes from a
 ``challenge_fn(round_index, unipolys) -> r`` on the host
 (sumcheck.rs:575-917); the non-ZK provers (sumcheck/prove.py) pass one
-that absorbs the polynomial and squeezes the transcript.  Per round, one evaluation launch pair of kernel A
-sums every instance, the host pulls those few scalars, interpolates each
-instance's round polynomial and asks for the challenge, and one bind
-launch folds it in place.
+that absorbs the polynomial and squeezes the transcript.  Per round, one
+launch of kernel A binds the previous round's challenge in place and sums
+every instance from the bound values (the JAX steps' bind_first), the
+host pulls those few scalars, interpolates each instance's round
+polynomial and asks for the challenge; one bind launch after the last
+round folds its challenge.
 
 Instances sit on a leading axis K (K = 1 for SpartanZkSNARK, K = 2 for
 NeutronNova's step/core lockstep), as in the reference's
@@ -24,7 +26,8 @@ import torch
 from ..field.constants import FieldSpec
 from ..field.limbs import limbs_to_ints
 from ..polys.univariate import UniPoly
-from .device import CUBIC, QUAD, bind, inner0_bind, inner0_evals, round_sums_batched
+from .device import (CUBIC, QUAD, bind, inner0_bind, inner0_evals, new_ticket,
+                     round_sums_batched, round_sums_bind)
 
 
 def prove_zk_cubic(spec: FieldSpec, claims: list[int], E: torch.Tensor,
@@ -63,7 +66,9 @@ def prove_zk_quad(spec: FieldSpec, claims: list[int], polys: tuple,
 def zk_rounds(mode: int, spec: FieldSpec, claims: list[int], vecs: list, n: int,
               rounds: int, rs: list, challenge_fn, gather=None) -> list[int]:
     """``rounds`` ZK rounds of kernel A's CUBIC (vecs E, A, B, C) or QUAD
-    (A, Z) mode over the first n rows of ``vecs`` (bound in place), the
+    (A, Z) mode over the first n rows of ``vecs`` (bound in place: each
+    round after the first binds the one before it in its own launch, and
+    one bind follows the last), the
     challenges appended to ``rs`` and asked of ``challenge_fn(len(rs),
     unipolys)`` -> the claims after them.  ``gather`` joins a round's
     (K, sums, 8) sums across ranks, (W K, sums, 8) in rank order."""
@@ -71,8 +76,21 @@ def zk_rounds(mode: int, spec: FieldSpec, claims: list[int], vecs: list, n: int,
     es = [c % p for c in claims]
     K = len(es)
     ns = 3 if mode == CUBIC else 2
+    ticket = new_ticket(vecs[0].device)
+    # the eq vector shared by K > 1 instances is bound out of place, into
+    # the other of two buffers in turn
+    E = vecs[0]
+    spare = torch.empty_like(E[: n // 2]) if mode == CUBIC and K > 1 and rounds > 1 else None
+    vecs = list(vecs)
+    r = None
     for _ in range(rounds):
-        sums = round_sums_batched(mode, n, vecs, spec)
+        if r is None:
+            sums = round_sums_batched(mode, n, vecs, spec, ticket)
+        elif spare is None:
+            sums = round_sums_bind(mode, n, vecs, r, spec, ticket)
+        else:
+            sums = round_sums_bind(mode, n, vecs, r, spec, ticket, spare)
+            vecs[0], spare = spare, vecs[0]
         vals = limbs_to_ints(sums if gather is None else gather(sums), spec, mont=True)
         per = [[sum(vals[k * ns + t :: K * ns]) % p for t in range(ns)] for k in range(K)]
         if mode == CUBIC:
@@ -85,8 +103,11 @@ def zk_rounds(mode: int, spec: FieldSpec, claims: list[int], vecs: list, n: int,
         r = challenge_fn(len(rs), unis)
         rs.append(r)
         es = [u.evaluate(r) for u in unis]
-        bind(vecs, n, r, spec)
         n //= 2
+    if r is not None:
+        bind(vecs, 2 * n, r, spec)
+    if vecs[0] is not E:
+        E[:n].copy_(vecs[0][:n])
     return es
 
 

@@ -100,3 +100,23 @@ def test_live_jax_prove_matches_golden_and_port(golden, port_run):
     assert (keys, prep, proof) == (golden["keys"], golden["prep"], golden["proof"])
     engine = port_run[0]
     assert spartan_proof_to_bytes(port_run[3], engine) == proof
+
+
+@pytest.mark.parametrize("name", ["vesta", "bn254"])
+def test_other_engines_prove_to_the_jax_bytes(name):
+    """SpartanSNARK on the cubic circuit with VestaHyraxEngine and
+    Bn254Engine (make_golden --vesta / --bn254): the port's setup and prep
+    write the recorded JAX keys and prep, its prove from the same seeds
+    writes the recorded JAX proof, and its verifier accepts it."""
+    from tests.torch_golden.make_golden import ENGINE_OUT
+
+    engine_name, path = ENGINE_OUT[name]
+    gold = read_golden(path)
+    engine, circuit = get_engine(engine_name), CubicCircuit()
+    pk, vk = SpartanSNARK.setup(engine, circuit, width=gold["width"], device="cpu")
+    assert spartan_keys_to_bytes(pk) == gold["keys"]
+    prep = SpartanSNARK.prep_prove(pk, circuit, rng=det(gold["prep_seed"]))
+    assert spartan_prep_to_bytes(prep, engine) == gold["prep"]
+    proof, _ = SpartanSNARK.prove(pk, circuit, prep, rng=det(gold["prove_seed"]))
+    assert spartan_proof_to_bytes(proof, engine) == gold["proof"]
+    assert SpartanSNARK.verify(proof, vk) == [15]

@@ -55,15 +55,6 @@ def test_eq_tables_equal_eq_table_per_table():
         assert limbs_to_ints(t, F, mont=True) == eq_evals_host(JF, taus[a:b])
 
 
-def test_eq_tables_refuses_more_than_one_launch():
-    """One launch holds EQ_MAX_TABLES tables; more is refused, on the CPU
-    as on the card, where no caller sends more."""
-    fac = eq_factors([], F, "cpu")
-    assert len(eq_tables(fac, [0] * EQ_MAX_TABLES, F)) == EQ_MAX_TABLES
-    with pytest.raises(ValueError, match="at most"):
-        eq_tables(fac, [0] * (EQ_MAX_TABLES + 1), F)
-
-
 @pytest.mark.parametrize("m", [6, 8])
 @pytest.mark.parametrize("taus_kind", ["random", "with_0_and_1"])
 def test_outer_cubic_batched_plan_matches_jax(m, taus_kind):

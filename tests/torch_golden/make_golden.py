@@ -13,6 +13,8 @@ Run from the repository root:
 
     JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden        # cubic_p256.bin
     JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --zk   # cubic_zk_p256.bin
+    JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --vesta  # cubic_vesta.bin
+    JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --bn254  # cubic_bn254.bin
     SPARTAN2_NN_HOST=1 JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --nn
     SPARTAN2_NN_HOST=1 JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --nn square
     JAX_PLATFORMS=cpu python -m tests.torch_golden.make_golden --chain      # chain_pallas.bin
@@ -22,7 +24,11 @@ Run from the repository root:
 The committed ``cubic_p256.bin`` was recorded with the JAX package of
 commit 4cf6d4bc4a04b6b518ace38bd3ac5e0ff6d2cd09, and ``cubic_zk_p256.bin``
 (through JAX's default device path) with the JAX package of commit
-e26eee5ee9a12d44319e1936090806f3e64ac20b.
+e26eee5ee9a12d44319e1936090806f3e64ac20b.  ``cubic_vesta.bin`` and
+``cubic_bn254.bin`` hold the same SpartanSNARK run on ``VestaHyraxEngine``
+and ``Bn254Engine``, recorded with the JAX package of commit
+93cffdab363a293799a7b1bbe5c215cf081c8329 in 1929 s and 2028 s, one after
+the other (about 16 GB each).
 
 The NeutronNovaZkSNARK files hold one configuration each, both P256 at
 width 4 with tests/test_neutronnova.py's ``CoreCircuit`` as the core:
@@ -84,6 +90,9 @@ PROVE_SEED = 2
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "cubic_p256.bin")
 OUT_ZK = os.path.join(HERE, "cubic_zk_p256.bin")
+# SpartanSNARK on the cubic circuit with the other engines (--vesta, --bn254)
+ENGINE_OUT = {"vesta": ("VestaHyraxEngine", os.path.join(HERE, "cubic_vesta.bin")),
+              "bn254": ("Bn254Engine", os.path.join(HERE, "cubic_bn254.bin"))}
 CHAIN_OUT = os.path.join(HERE, "chain_pallas.bin")
 NN_CHAIN_OUT = os.path.join(HERE, "nn_chain_pallas.bin")
 CURVE_OUT = os.path.join(HERE, "curve_device.json")
@@ -165,9 +174,10 @@ def jax_cubic_circuit():
     return CubicCircuit()
 
 
-def jax_prove(zk: bool = False) -> tuple[bytes, bytes, bytes]:
+def jax_prove(zk: bool = False,
+              engine_name: str = "P256HyraxEngine") -> tuple[bytes, bytes, bytes]:
     """JAX setup, prep_prove and prove from the fixed seeds, with
-    SpartanSNARK or (``zk``) SpartanZkSNARK."""
+    SpartanSNARK or (``zk``) SpartanZkSNARK, on ``engine_name``."""
     from spartan2_tpu.provider.engines import get_engine
     from spartan2_tpu.utils import serde
 
@@ -180,7 +190,7 @@ def jax_prove(zk: bool = False) -> tuple[bytes, bytes, bytes]:
         keys_to_bytes = serde.spartan_keys_to_bytes
         proof_to_bytes = serde.spartan_proof_to_bytes
 
-    engine = get_engine("P256HyraxEngine")
+    engine = get_engine(engine_name)
     circuit = jax_cubic_circuit()
     pk, _ = snark.setup(engine, circuit, width=WIDTH)
     prep = snark.prep_prove(pk, circuit, rng=det(PREP_SEED))
@@ -398,9 +408,12 @@ def main() -> int:
                   f"{time.time() - t0:.1f} s")
         return 0
     zk = "--zk" in args
-    out = OUT_ZK if zk else OUT
+    out, engine_name = OUT_ZK if zk else OUT, "P256HyraxEngine"
+    for name, (eng, path) in ENGINE_OUT.items():
+        if f"--{name}" in args:
+            out, engine_name = path, eng
     t0 = time.time()
-    keys, prep, proof = jax_prove(zk)
+    keys, prep, proof = jax_prove(zk, engine_name)
     write_golden(out, keys, prep, proof)
     print(f"wrote {out}: keys {len(keys)} B, prep {len(prep)} B, "
           f"proof {len(proof)} B in {time.time() - t0:.1f} s")
