@@ -516,6 +516,22 @@ def bind_first_bound(mode: int, n: int, vecs: list) -> tuple:
     return rows * (n + n // 2) * 32, rows * (n // 2) + pairs * per_pair
 
 
+def g_muls(pairs: int, row_pairs: int, sums: int) -> float:
+    """Montgomery products kernel G's sums need over ``pairs`` pairs in
+    left rows of ``row_pairs`` pairs: per pair and active sum one reduced
+    product for f and one unreduced product by ER (half a product); per
+    left row and sum one reduction (half a product) and one product by EL."""
+    rows = -(-pairs // row_pairs)
+    return sums * (1.5 * pairs + 1.5 * rows)
+
+
+def hyrax_bind_bound(R: int, C: int) -> tuple:
+    """(bytes, Montgomery products) kernel 4 needs at R x C: L and the rows
+    read once, LZ written once; R C unreduced products (half a product
+    each), and per column one reduction and one from_mont (half each)."""
+    return R * C * 32 + R * 32 + C * 32, 0.5 * R * C + C
+
+
 def compare_kernels(pk, prep, proof, launches: dict):
     """Each kernel against its plain version at the main path's shapes;
     -> (kernel records for the JSON line, detail records)."""
@@ -708,7 +724,8 @@ def compare_kernels(pk, prep, proof, launches: dict):
                 lambda: hyrax_bind_plain(L, poly, F))
     record_kernel("hyrax_bind", "spartan2_tpu/pcs/hyrax.py:300",
                   cuda_ms(lambda: hyrax_bind(L, poly, F), 10), pms,
-                  R * C * 32 + R * 32 + C * 32, R * C + C)
+                  *hyrax_bind_bound(R, C))
+    out[-1]["device_ms"] = device_ms(lambda: hyrax_bind(L, poly, F), 10)
 
     # kernel 5: the verifier's fold of the proof's row commitments
     comm_W, _ = proof.U.to_regular(engine.pcs)
@@ -956,6 +973,10 @@ def kernel_group(name: str) -> str | None:
         return "F"
     if "round_kernel<" in name:
         return "A"  # kernel A's rounds, the previous bind folded in
+    if "cubiceq_evals_kernel" in name:
+        return "G"
+    if "hyrax_bind_kernel" in name:
+        return "hyrax_bind"  # kernel 4
     if name.startswith("bind_kernel"):
         return "bind"  # each sum-check's last bind, and kernel G's binds
     if name.startswith("sum_partials"):
@@ -966,8 +987,9 @@ def kernel_group(name: str) -> str | None:
 def print_redesigned(path: str, groups: dict, dev_ms: float) -> None:
     share = {g: [ms, n, round(ms / dev_ms, 4)] for g, (ms, n) in groups.items()}
     print(f"{path} prove, redesigned kernels: SpMV, comb rows, kernel C (msm), eq "
-          "tables, kernel F, kernel A's rounds and the bind (device ms, launches, share "
-          f"of the prove's {dev_ms:.4f} device ms): {json.dumps(share)}", flush=True)
+          "tables, kernel F, kernel A's rounds and the bind, kernel G, kernel 4 "
+          "(hyrax_bind) (device ms, launches, share of the prove's "
+          f"{dev_ms:.4f} device ms): {json.dumps(share)}", flush=True)
     if "sum_partials" in groups:
         raise RuntimeError(f"{path} prove launched sum_partials_kernel")
 
@@ -1062,6 +1084,13 @@ def run_spartan(engine, circuit, dev, kernels):
                     {"sp2_round_evals": 1, "sp2_round_bind_evals": mq - 1,
                      "sp2_bind_dev": m, "sp2_inner0_bind_dev": 2, "sp2_inner0_evals": 1,
                      "sp2_bind": 0, "round_finish": m + 1 + mq}, "SpartanSNARK")
+    # kernel G a Gruen round (one launch, its sums finished in it), kernel 4 once
+    g4 = {"cubiceq": per_prove["cubiceq"], "hyrax_bind": per_prove["hyrax_bind"]}
+    if g4 != {"cubiceq": m, "hyrax_bind": 1}:
+        raise RuntimeError(f"SpartanSNARK: kernel G / 4 launches a prove {g4}, expected "
+                           f"{m} / 1")
+    print(f"SpartanSNARK: kernel G / 4 launches a prove, as expected: {json.dumps(g4)}",
+          flush=True)
     with record() as spans_verify:
         t0 = time.perf_counter()
         if SpartanSNARK.verify(proof, vk) != circuit.public_values():
@@ -1176,6 +1205,9 @@ def run_spartan_zk(engine, S, circuit, dev, kernels):
     sumcheck_counts(per_prove["sumcheck"],
                     {"sp2_round_evals": 2, "sp2_round_bind_evals": m + mq - 2, "sp2_bind": 2,
                      "sp2_inner0_evals": 1, "sp2_inner0_bind": 1}, "SpartanZkSNARK")
+    if per_prove["hyrax_bind"] != {"sp2_hyrax_bind": 1}:
+        raise RuntimeError(f"SpartanZkSNARK: kernel 4 launches a prove "
+                           f"{per_prove['hyrax_bind']}, expected 1")
 
     blob = spartan_zk_proof_to_bytes(proof, engine)
     back = spartan_zk_proof_from_bytes(blob, engine)
@@ -1692,7 +1724,7 @@ def check_sumchecks(pk, prep, circuit, launches: dict, probe, expect_peeled: boo
     from spartan2_tpu_torch.field.limbs import limbs_to_ints, to_device
     from spartan2_tpu_torch.snark.spartan import SpartanSNARK
     from spartan2_tpu_torch.sumcheck.device import (
-        CUBIC, DOT, cubiceq_evals, cubiceq_evals_plain, eq_factors, eq_table,
+        CUBIC, DOT, cubiceq_evals, cubiceq_evals_plain, eq_factors, eq_table, new_ticket,
         round_evals, round_sums)
     from spartan2_tpu_torch.sumcheck.prove import (
         _NCOEFFS, CUBIC_EVALS, GRUEN, INNER0, QUAD_EVALS, SumcheckProverCubic,
@@ -1825,23 +1857,32 @@ def check_sumchecks(pk, prep, circuit, launches: dict, probe, expect_peeled: boo
     peel_args = (half, hi_len, EL, ER, m - fh)
     part, pms = g_case(f"peeled round 0, 2^{m}, upper half read below {hi_len} of {half}",
                        peel_args, True)
-    # zero_check: A, B lower half, their live upper rows; 3 products a pair
-    # (the weight, (A_hi - A_lo)(B_hi - B_lo), and their product)
-    out.append(kernel_record(
+    ticket = new_ticket(dev)  # one a sum-check, as the prove passes it
+
+    def peel():
+        cubiceq_evals(A, B, C, *peel_args, True, False, F, ticket=ticket)
+
+    # zero_check: A, B lower half, their live upper rows; tinf alone
+    rec = kernel_record(
         "cubiceq", "spartan2_tpu/sumcheck/fused.py:307", launches["cubiceq"],
-        NONZK_COUNTS + " (one sp2_cubiceq_evals per outer round)",
-        cuda_ms(lambda: cubiceq_evals(A, B, C, *peel_args, True, False, F), 10), pms,
+        NONZK_COUNTS + " (one sp2_cubiceq_evals per outer round)", cuda_ms(peel, 10), pms,
         2 * (half + hi_len) * 32 + (L0 + R) * 32 + 3 * 32 * part.shape[0],
-        3 * half, source="spartan2_tpu_torch/csrc/cubiceq.cu"))
+        g_muls(half, 1 << (m - fh), 1), source="spartan2_tpu_torch/csrc/cubiceq.cu")
+    rec["device_ms"] = device_ms(peel, 10)
+    out.append(rec)
     r1_args = (half // 2, half // 2, EL, ER, m - fh)
     _, pms1 = g_case(f"round 1, 2^{m - 1}, two-level", r1_args, False)
-    detail.append(detail_record(
-        f"cubiceq_evals round 1 2^{m - 1} (t0 and tinf, two-level)",
-        cuda_ms(lambda: cubiceq_evals(A, B, C, *r1_args, False, False, F), 10), pms1,
-        3 * half * 32 + (L0 + R) * 32, 5 * (half // 2)))
+
+    def r1():
+        cubiceq_evals(A, B, C, *r1_args, False, False, F, ticket=ticket)
+
+    detail.append({**detail_record(
+        f"cubiceq_evals round 1 2^{m - 1} (t0 and tinf, two-level)", cuda_ms(r1, 10), pms1,
+        3 * half * 32 + (L0 + R) * 32, g_muls(half // 2, 1 << (m - fh), 2)),
+        "device_ms": device_ms(r1, 10)})
 
     # kernel F in every mode against its plain version: the Gruen modes on
-    # kernel G's partial sums of the peeled round 0 (zero_check, as the
+    # kernel G's sums of the peeled round 0 (zero_check, as the
     # prove runs it) and of round 1 (plain, and with fallback: tau = 0),
     # CUBIC_EVALS on kernel A's sums at 2^m, QUAD and INNER0 on random sums
     eqt = eq_table(eq_factors(taus, F, dev), F)
@@ -2074,6 +2115,134 @@ def check_graphs(pk, prep, circuit) -> list:
           f"sum-check (round 0 and {mq} quad rounds) captured whole, no host "
           "synchronization; replayed on two sets of fresh inputs, equal to uncaptured runs "
           "(coefficients, challenges, finals, state): " + json.dumps(detail), flush=True)
+    return detail
+
+
+G_CASE_M = 14  # rows of kernel G's mode cases: 2^14
+
+
+def zero_stack_or_raise(kernel) -> list:
+    """Every kernel of ``kernel``'s library built with 0 bytes of stack
+    frame and of spills (its ptxas lines) -> those lines."""
+    log = kernel.lib_path.parent / f"{kernel.name}.log"
+    lines = [ln.strip() for ln in log.read_text().splitlines() if "stack frame" in ln]
+    if not lines or any(not ln.startswith(
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads") for ln in lines):
+        raise RuntimeError(f"{kernel.name}: stack or spills in its ptxas lines: {lines}")
+    return lines
+
+
+def check_g_and_bind(dev) -> list:
+    """Kernels G and 4 against their plain versions on P-256 and Pallas.
+    G at the main path's round 0 (peeled: the upper half read below its
+    live rows) and round 1 over 2^20 rows, then over 2^14 rows in every
+    mode: two-level (left rows of 128, 8 and, at lw = 2 > rlog = 1, 1
+    pair) and one-level, zero_check on and off, fallback on, hi_len 0,
+    some and half, the shard stride at lw = 1 and 2 with shard != 0, on
+    random inputs, all zeros and all p - 1; every case launched twice on
+    one ticket.  Kernel 4 at 256 x 2048, at R in {1, 2, 3, 255} x C in {1,
+    33, 2048}, and with L and poly all p - 1.  Then G's device time round
+    by round at the main path's shapes (tools/g_rounds.py) -> details."""
+    from spartan2_tpu_torch.field.limbs import to_device
+    from spartan2_tpu_torch.pcs.hyrax import hyrax_bind, hyrax_bind_plain
+    from spartan2_tpu_torch.provider.engines import get_engine
+    from spartan2_tpu_torch.sumcheck.device import (cubiceq_evals, cubiceq_evals_plain,
+                                                    new_ticket)
+    from tools.g_rounds import g_rounds, g_summary, time_g_rounds
+
+    detail = []
+    for ename in ("P256HyraxEngine", "PallasHyraxEngine"):
+        F = get_engine(ename).scalar
+        gen = torch.Generator().manual_seed(21)
+        ticket = new_ticket(dev)
+        launched = [0]
+
+        def full(n, kind):
+            if kind == "random":
+                return rand_field(n, F, gen, dev)
+            v = 0 if kind == "zeros" else F.modulus - 1
+            return to_device([v], F, dev).expand(n, 8).contiguous()
+
+        def g_check(name, vecs, half, hi_len, EL, ER, rlog, zc, fb, shard=0, lw=0):
+            args = (half, hi_len, EL, ER, rlog, zc, fb, F, shard, lw)
+            want = cubiceq_evals_plain(*vecs, *args)
+            for _ in range(2):
+                got = cubiceq_evals(*vecs, *args, ticket=ticket)
+                launched[0] += 1
+                if got.shape != (1, 3, 8) or not torch.equal(got, want):
+                    raise RuntimeError(f"kernel G ({ename}, {name}) differs from its "
+                                       "plain version")
+
+        vecs = [full(1 << 20, "random") for _ in range(3)]
+        for r in g_rounds(20, 528177)[:2]:
+            g_check(f"main path round {r['round']}", vecs, r["half"], r["hi_len"],
+                    full(1 << r["el_vars"], "random"), full(1 << r["er_vars"], "random"),
+                    r["rlog"], r["zero_check"], False)
+        n = 1 << G_CASE_M
+        half, some = n // 2, n // 6
+        rl = G_CASE_M - G_CASE_M // 2
+        for kind in ("random", "zeros", "p-1"):
+            vecs = [full(n, kind) for _ in range(3)]
+            # (name, EL entries or None, ER entries, rlog, zc, fb, hi_len, shard, lw)
+            cases = [("two-level, zero_check, hi_len 0", half >> rl, 1 << rl, rl, True,
+                      False, 0, 0, 0),
+                     ("two-level, zero_check", half >> rl, 1 << rl, rl, True, False, some,
+                      0, 0),
+                     ("two-level", half >> rl, 1 << rl, rl, False, False, half, 0, 0),
+                     ("two-level, fallback", half >> rl, 1 << rl, rl, False, True, some, 0,
+                      0),
+                     ("two-level, zero_check, fallback", half >> rl, 1 << rl, rl, True,
+                      True, half, 0, 0),
+                     ("two-level, rows of 8", half >> 3, 8, 3, False, True, some, 0, 0),
+                     ("two-level, shard 1 of 2", half >> rl, 1 << rl, rl, False, False,
+                      some // 2, 1, 1),
+                     ("two-level, shard 3 of 4, zero_check", half >> rl, 1 << rl, rl, True,
+                      False, some // 4, 3, 2),
+                     ("two-level, shard 1 of 4, lw > rlog", half << 1, 2, 1, False, True,
+                      some // 4, 1, 2),
+                     ("one-level", None, half, 0, False, False, half, 0, 0),
+                     ("one-level, zero_check, fallback", None, half, 0, True, True, some,
+                      0, 0),
+                     ("one-level, shard 3 of 4", None, half, 0, False, True, some // 4, 3,
+                      2)]
+            for name, nel, ner, rlog, zc, fb, hi, shard, lw in cases:
+                h = half >> lw
+                EL = None if nel is None else full(nel, kind)
+                g_check(f"{name}, {kind}", vecs, h, min(hi, h), EL, full(ner, kind), rlog,
+                        zc, fb, shard, lw)
+        print(f"equal to plain: cubiceq_evals on {ename}: the main path's round 0 "
+              f"(peeled) and round 1 at 2^20, and {len(cases)} mode cases at "
+              f"2^{G_CASE_M} on random, zero and p - 1 inputs; {launched[0]} launches on "
+              "one ticket", flush=True)
+
+        shapes = [(256, 2048, "random")] + [(R, C, "random") for R in (1, 2, 3, 255)
+                                            for C in (1, 33, 2048)] + [(256, 2048, "p-1")]
+        for R, C, kind in shapes:
+            L = full(R, kind)
+            poly = full(R * C, kind).reshape(R, C, 8)
+            if not torch.equal(hyrax_bind(L, poly, F), hyrax_bind_plain(L, poly, F)):
+                raise RuntimeError(f"kernel 4 ({ename}, {R} x {C}, {kind}) differs from its "
+                                   "plain version")
+        L = full(256, "random")
+        poly = full(256 * 2048, "random").reshape(256, 2048, 8)
+        rec = detail_record(f"hyrax_bind 256 x 2048 on {ename}",
+                            cuda_ms(lambda: hyrax_bind(L, poly, F), 20),
+                            once_ms(lambda: hyrax_bind_plain(L, poly, F))[1],
+                            *hyrax_bind_bound(256, 2048))
+        rec["device_ms"] = device_ms(lambda: hyrax_bind(L, poly, F), 20)
+        detail.append(rec)
+        print(f"equal to plain: hyrax_bind on {ename} at {len(shapes)} shapes (256 x 2048, "
+              "R in {1, 2, 3, 255} x C in {1, 33, 2048}, all p - 1): " + json.dumps(rec),
+              flush=True)
+
+    F = get_engine("P256HyraxEngine").scalar
+    rounds = time_g_rounds(F)
+    summary = g_summary(rounds)
+    print("kernel G round by round at 2^20 (device us by torch.profiler, ms by CUDA "
+          "events): " + json.dumps([{k: r[k] for k in ("round", "half", "ms", "device_us")}
+                                    for r in rounds]) + "; " + json.dumps(summary),
+          flush=True)
+    detail.append({"name": "kernel G round by round, device us", **summary})
     return detail
 
 
@@ -2721,7 +2890,7 @@ def run_mesh(pk, prep, nn_pk, blobs: dict, cfg: dict = MAIN_CFG):
     from spartan2_tpu_torch.pcs.hyrax import SMALL_BITS
     from spartan2_tpu_torch.polys.eq import eq_evals_host
     from spartan2_tpu_torch.sumcheck.device import (CUBIC, QUAD, cubiceq_evals,
-                                                    cubiceq_evals_plain,
+                                                    cubiceq_evals_plain, new_ticket,
                                                     round_evals_batched,
                                                     round_evals_batched_plain)
 
@@ -2815,12 +2984,20 @@ def run_mesh(pk, prep, nn_pk, blobs: dict, cfg: dict = MAIN_CFG):
               f"{SUMCHECK_W}, {half_loc} local pairs, {live} live)", flush=True)
     g_launches = sum(out["spartan_launches"]["cubiceq"].get("sp2_cubiceq_evals", 0)
                      for out in ranks)
-    out_k.append(kernel_record(
+    ticket = new_ticket(dev)
+
+    def strided():
+        cubiceq_evals(*loc, *args, ticket=ticket)
+
+    rec = kernel_record(
         "cubiceq_strided", "spartan2_tpu/parallel/sumcheck_shard.py:199", g_launches,
         f"sp2_cubiceq_evals calls of the {MESH_W} ranks' sharded SpartanSNARK prove",
-        cuda_ms(lambda: cubiceq_evals(*loc, *args), 10), pms,
+        cuda_ms(strided, 10), pms,
         2 * (half_loc + live) * 32 + (EL.shape[0] + ER.shape[0]) * 32
-        + 3 * 32 * got.shape[0], 3 * half_loc, source="spartan2_tpu_torch/csrc/cubiceq.cu"))
+        + 3 * 32 * got.shape[0], g_muls(half_loc, 1 << max(0, m - fh - lw), 1),
+        source="spartan2_tpu_torch/csrc/cubiceq.cu")
+    rec["device_ms"] = device_ms(strided, 10)
+    out_k.append(rec)
 
     # (m4) the other kernels at the shard shapes of the MESH_W mesh: kernel
     # A QUAD over an inner shard, kernel A CUBIC over NN's outer shard
@@ -2928,6 +3105,10 @@ def main() -> int:
         regs = [ln.strip() for ln in log.read_text().splitlines()
                 if "registers" in ln or "spill" in ln] if log.exists() else []
         print(f"ptxas {k.name}: " + " | ".join(regs[:12]), flush=True)
+    for k in kernels:
+        if k.name in ("cubiceq", "hyrax_bind"):  # kernels G and 4
+            print(f"ptxas {k.name}: every kernel 0 bytes of stack and spills "
+                  f"({len(zero_stack_or_raise(k))} kernels)", flush=True)
     dev = torch.device("cuda")
     engine = get_engine("P256HyraxEngine")
     circuit = _sha_circuit(MAIN_CFG)
@@ -2942,6 +3123,7 @@ def main() -> int:
     t_out, t_detail = check_transcript(dev, launches)
     s_out, s_detail = check_sumchecks(pk, prep, circuit, launches, f_probe)
     g_detail = check_graphs(pk, prep, circuit)
+    g_detail += check_g_and_bind(dev)
     out, detail = compare_kernels(pk, prep, proof, launches)
     zk_out, zk_detail = compare_zk_kernels(pk.S, zk_proof, proof, zk_launches)
     nn_out, nn_detail = compare_nn_kernels(nn_pk, nn_prep, nn_proof, nn_launches)

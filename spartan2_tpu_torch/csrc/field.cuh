@@ -19,7 +19,7 @@
 // addition, tools/curve_latency.py); the windowed MSM, the eq tables, the
 // sum-check rounds (kernel A) and the round finish (kernel F) use them.
 // Acc keeps a sum of unreduced 512-bit products (fe_mul_acc) and reduces
-// it once (acc_reduce): kernel A's sums of products.
+// it once (acc_reduce): the sums of products of kernels A, B, G and 4.
 // The plain PyTorch version is spartan2_tpu_torch/field/ops.py.
 #pragma once
 
@@ -400,6 +400,14 @@ __device__ __forceinline__ void acc_add(Acc& acc, const Acc& x) {
   acc.w[16] = cc_addc_end(acc.w[16], x.w[16]);
 }
 
+// Lane l + off's sum (a warp's tree of sums of products).
+__device__ __forceinline__ Acc acc_shfl_down(const Acc& a, int off) {
+  Acc r;
+#pragma unroll
+  for (int i = 0; i < 17; ++i) r.w[i] = __shfl_down_sync(0xFFFFFFFFu, a.w[i], off);
+  return r;
+}
+
 // t[i .. 17] += m p 2^(32 i) (one Montgomery reduction row): the even and
 // the odd limbs' products on one chain each, the carry rippled to word 17.
 __device__ __forceinline__ void acc_redc_row(uint32_t t[18], int i, uint32_t m,
@@ -556,24 +564,6 @@ __device__ __forceinline__ void block_sums(Fe* s, const Field& F) {
 #pragma unroll
       for (int t = 0; t < NS; ++t) s[t] = fe_add_cc(s[t], fe_shfl_down(s[t], off), F);
     }
-  }
-}
-
-// Block sums of up to three per-thread sums into partial[(y, b, t)] for
-// grid row y = blockIdx.y and block b = blockIdx.x (NT threads a block).
-template <int NS, int NT>
-__device__ __forceinline__ void store_partials(Fe s0, Fe s1, Fe s2,
-                                               uint32_t* partial, const Field& F) {
-  const size_t at = ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * NS;
-  Fe t0 = block_sum<NT>(s0, F);
-  if (threadIdx.x == 0) fe_store(partial, at, t0);
-  if (NS > 1) {
-    Fe t1 = block_sum<NT>(s1, F);
-    if (threadIdx.x == 0) fe_store(partial, at + 1, t1);
-  }
-  if (NS > 2) {
-    Fe t2 = block_sum<NT>(s2, F);
-    if (threadIdx.x == 0) fe_store(partial, at + 2, t2);
   }
 }
 

@@ -9,7 +9,7 @@
 // (sumcheck/fused.py :213, :307, :464) inline into every round.
 //
 // One block of NT threads.  It adds the round's sums (kernel A's finished
-// sums, kernel B's, kernel G's per-block partials, or the ranks' gathered
+// sums, kernel B's, kernel G's, or the ranks' gathered
 // ones), then runs the round algebra of the mode with the running claim
 // and eq prefix P read from ctx:
 //   GRUEN        t0, tinf, tm1 -> gruen_finish's

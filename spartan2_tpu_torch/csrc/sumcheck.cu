@@ -81,6 +81,7 @@
 // num_extra products.
 
 #include "field.cuh"
+#include "finish.cuh"
 
 using namespace sp2;
 
@@ -206,47 +207,6 @@ __device__ __forceinline__ void load_pair(uint32_t* x, size_t q, size_t j, const
   }
 }
 
-// This block's NS sums of instance k into partial[k, block, t].
-template <int NS>
-__device__ __forceinline__ void store_block_sums(int k, Fe* s, uint32_t* partial,
-                                                 const Field& F) {
-  block_sums<NT, NS>(s, F);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int t = 0; t < NS; ++t)
-      fe_store(partial, ((size_t)k * gridDim.x + blockIdx.x) * NS + t, s[t]);
-  }
-}
-
-// The last block to arrive (an atomic ticket behind a fence) adds every
-// block's partials, a warp a sum: out[k, t] = sum_b partial[k, b, t] over
-// the instances k = blockIdx.y of the grid; it
-// sets the ticket back to 0 for the next launch.  Field sums are exact, so
-// the order the blocks arrive in does not matter.
-template <int NS>
-__device__ __forceinline__ void finish_sums(const uint32_t* partial, uint32_t* out,
-                                            unsigned* ticket, const Field& F) {
-  __shared__ int last;
-  const int K = gridDim.y;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int kt = warp; kt < K * NS; kt += NT / 32) {
-    const int k = kt / NS, t = kt % NS;
-    Fe s = fe_zero();
-    for (int b = lane; b < (int)gridDim.x; b += 32)
-      s = fe_add_cc(s, fe_load_cg(partial, ((size_t)k * gridDim.x + b) * NS + t), F);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s = fe_add_cc(s, fe_shfl_down(s, off), F);
-    if (lane == 0) fe_store(out, kt, s);
-  }
-  if (threadIdx.x == 0) *ticket = 0;
-}
-
 // Kernel A: the round's sums of K instances (instance k's A, B, C start k
 // stride rows after the first; eq is shared), one launch, a grid row
 // (blockIdx.y) an instance.  With BIND every instance binds the shared eq
@@ -316,8 +276,8 @@ __global__ void __launch_bounds__(NT) round_kernel(size_t work, size_t stride, u
   s[0] = acc_reduce(s0, F);
   if (NS > 1) s[1] = acc_reduce(s1, F);
   if (NS > 2) s[2] = acc_reduce(s2, F);
-  store_block_sums<NS>(k, s, partial, F);
-  finish_sums<NS>(partial, out, ticket, F);
+  store_block_sums<NS, NT>(k, s, partial, F);
+  finish_sums<NS, NT>(partial, out, ticket, F);
 }
 
 // The structured inner round 0 (kernel B): per instance k = blockIdx.y, the
@@ -349,8 +309,8 @@ __global__ void __launch_bounds__(NT) inner0_evals_kernel(size_t num_vars, size_
     }
   }
   Fe s[3] = {acc_reduce(s0, F), acc_reduce(s1, F), acc_reduce(s2, F)};
-  store_block_sums<3>(k, s, partial, F);
-  finish_sums<3>(partial, out, ticket, F);
+  store_block_sums<3, NT>(k, s, partial, F);
+  finish_sums<3, NT>(partial, out, ticket, F);
 }
 
 struct Vec4 {

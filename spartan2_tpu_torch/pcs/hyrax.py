@@ -41,6 +41,7 @@ from ..utils.cuda import CudaKernel, I, P, check_cuda, field_words
 from ..utils.tracing import span
 
 HYRAX_BIND = CudaKernel("hyrax_bind", {"sp2_hyrax_bind": [I, I, P, P, P, P]})
+_INT_MAX = (1 << 31) - 1
 
 FULL_BITS = 256
 SMALL_BITS = 64
@@ -66,16 +67,20 @@ def hyrax_bind_plain(L: torch.Tensor, poly: torch.Tensor,
 
 def hyrax_bind(L: torch.Tensor, poly: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     """(R, 8) Montgomery L and (R, C, 8) Montgomery rows -> (C, 8)
-    canonical LZ (hyrax bind_with_delayed, hyrax_pc.rs:38-54)."""
+    canonical LZ (hyrax bind_with_delayed, hyrax_pc.rs:38-54).  On the
+    card one launch: a block of 16 columns x up to 32 row slices,
+    unreduced sums, one reduction a column (csrc/hyrax_bind.cu)."""
     if poly.device.type == "cpu":
         return hyrax_bind_plain(L, poly, spec)
     check_cuda(L, poly)
     R, C = poly.shape[:2]
     if poly.shape != (R, C, 8) or L.shape != (R, 8):
         raise ValueError("hyrax_bind: L must be (R, 8) and poly (R, C, 8)")
+    if not (1 <= R <= _INT_MAX and 1 <= C <= _INT_MAX):  # the C side's int shapes
+        raise ValueError("hyrax_bind: need 1 <= R, C < 2^31")
     out = torch.empty(C, 8, dtype=torch.int32, device=poly.device)
-    HYRAX_BIND.call("sp2_hyrax_bind", R, C, L.data_ptr(), poly.data_ptr(),
-                    out.data_ptr(), field_words(spec))
+    HYRAX_BIND.call("sp2_hyrax_bind", R, C, L.data_ptr(), poly.data_ptr(), out.data_ptr(),
+                    field_words(spec))
     return out
 
 

@@ -13,7 +13,7 @@ in (the JAX steps' ``bind_first``).  ``round_evals*`` and
 ``inner0_evals`` return canonical Python ints (the host-challenge
 drivers squeeze from them); ``round_sums``, ``inner0_sums`` and
 ``cubiceq_evals`` leave their sums on the device, (rows, sums, 8)
-Montgomery (kernel G one row a block), for the round finish
+Montgomery (one row an instance), for the round finish
 (sumcheck/prove.py ``round_finish``), and ``bind_dev``/
 ``inner0_bind_dev`` read the challenge from the device slot [r, 1 - r]
 the finish wrote.
@@ -43,13 +43,17 @@ SUMCHECK = CudaKernel("sumcheck", {
     "sp2_inner0_bind_dev": [SZ, SZ, I, P, P, P, P, P, P],
 })
 CUBICEQ = CudaKernel("cubiceq", {
-    "sp2_cubiceq_evals": [SZ, SZ, I, I, I, SZ, I, P, P, P, P, P, P, I, P],
+    "sp2_cubiceq_evals": [SZ, SZ, I, I, I, SZ, I, P, P, P, P, P, P, I, P, P, P],
 })
 
 CUBIC, QUAD, DOT = 0, 1, 2
 _NSUMS = {CUBIC: 3, QUAD: 2, DOT: 1}
 _NT = 256
-_MAX_BLOCKS = 1024  # kernel G's grid
+# kernel G's grid (csrc/cubiceq.cu g_blocks): a tile a block, at most
+# G_MAX_BLOCKS blocks; a segment of at least G_MIN_SEG threads a sub-row
+_G_MAX_BLOCKS = 264
+_G_WAVE = 132
+_G_MIN_SEG = 32
 # kernel A's and B's grid (csrc/sumcheck.cu round_blocks): a pair a thread,
 # at most ROUND_MAX_BLOCKS blocks
 _ROUND_MAX_BLOCKS = 264
@@ -76,9 +80,27 @@ def _instances(vecs: list) -> tuple[int, int]:
     return K, rows
 
 
-def _g_blocks(work: int) -> int:
-    """Kernel G's grid: a pair a thread, at most _MAX_BLOCKS blocks."""
-    return max(1, min(-(-work // _NT), _MAX_BLOCKS))
+def _g_shape(half: int, rlog: int, lw: int, two_level: bool) -> tuple:
+    """Kernel G's map, as csrc/cubiceq.cu's g_shape -> (pairs a sub-row,
+    threads a segment, tiles).  One-level: NT pairs a tile.  Two-level: a
+    left row of 2^max(0, rlog - lw) local pairs, cut into sub-rows of at
+    most the least power of two >= NT whose tiles fit _G_WAVE blocks (a
+    block an SM); a segment of a sub-row's pairs clamped to [_G_MIN_SEG, NT]
+    threads, NT / seg sub-rows a tile."""
+    if not two_level:
+        return 0, _NT, -(-half // _NT)
+    cap = _NT
+    while cap * _G_WAVE < half:
+        cap <<= 1
+    lr = min(1 << max(0, rlog - lw), cap)
+    seg = min(_NT, max(_G_MIN_SEG, lr))
+    return lr, seg, -(-(-(-half // lr)) // (_NT // seg))
+
+
+def _g_blocks(half: int, rlog: int, lw: int, two_level: bool) -> int:
+    """Kernel G's grid, as csrc/cubiceq.cu's g_blocks, which refuses
+    another: a tile a block, at most _G_MAX_BLOCKS."""
+    return max(1, min(_g_shape(half, rlog, lw, two_level)[2], _G_MAX_BLOCKS))
 
 
 def _nblocks(work: int) -> int:
@@ -88,7 +110,7 @@ def _nblocks(work: int) -> int:
 
 
 def new_ticket(device) -> torch.Tensor | None:
-    """Kernel A's and B's arrival counter on a CUDA device: zero, and zero
+    """Kernel A's, B's and G's arrival counter on a CUDA device: zero, and zero
     again after each launch (its last block resets it), so one serves a
     whole sum-check; None on the CPU, where the plain versions need none."""
     if torch.device(device).type != "cuda":
@@ -593,23 +615,28 @@ def cubiceq_evals_plain(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, half:
 
 def cubiceq_evals(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, half: int,
                   hi_len: int, EL, ER: torch.Tensor, rlog: int, zero_check: bool,
-                  fallback: bool, spec: FieldSpec, shard: int = 0,
-                  lw: int = 0) -> torch.Tensor:
+                  fallback: bool, spec: FieldSpec, shard: int = 0, lw: int = 0,
+                  ticket: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel G: the sums of one Gruen round over the low half [0, half)
     of A, B, C ((rows, 8) Montgomery), the high half read below hi_len and
     zero past it, against w_g = EL[g >> rlog] ER[g mod 2^rlog] (EL a
-    tensor) or ER[g] (EL None) -> (nblocks, 3, 8) partial sums of t0
-    (zero with zero_check), tinf and, with fallback, t(-1)
-    (csrc/cubiceq.cu).  Local pair i is global pair g = shard + (i << lw):
-    rank ``shard`` of 2^lw holding the rows shard + 2^lw i (half and hi_len
-    local); shard = lw = 0 unsharded."""
+    tensor) or ER[g] (EL None) -> (1, 3, 8) sums of t0 (zero with
+    zero_check), tinf and, with fallback, t(-1) (csrc/cubiceq.cu: per left
+    row an unreduced inner sum over ER, reduced once and multiplied by EL
+    once; the blocks' sums finished in the launch by the last block).  Local pair i is
+    global pair g = shard + (i << lw): rank ``shard`` of 2^lw holding the
+    rows shard + 2^lw i (half and hi_len local); shard = lw = 0
+    unsharded.  ``ticket`` (``new_ticket``) may serve a whole sum-check;
+    without it the launch takes its own."""
     if not 0 <= shard < 1 << lw:
         raise ValueError("cubiceq_evals: need 0 <= shard < 2^lw")
     if A.device.type == "cpu":
         return cubiceq_evals_plain(A, B, C, half, hi_len, EL, ER, rlog, zero_check,
                                    fallback, spec, shard, lw)
-    if not 0 <= hi_len <= half:
-        raise ValueError("cubiceq_evals: need 0 <= hi_len <= half")
+    if not 0 <= hi_len <= half < 1 << 32:
+        raise ValueError("cubiceq_evals: need 0 <= hi_len <= half < 2^32")
+    if not (0 <= rlog <= 40 and lw <= 20):
+        raise ValueError("cubiceq_evals: need 0 <= rlog <= 40 and lw <= 20")
     tables = [ER] if EL is None else [EL, ER]
     _check_vecs([A, B, C], half + hi_len)
     check_cuda(A, *tables)
@@ -617,10 +644,14 @@ def cubiceq_evals(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, half: int,
     if ER.shape[0] < (glob if EL is None else 1 << rlog) or (
             EL is not None and EL.shape[0] << rlog < glob):
         raise ValueError("cubiceq_evals: weight tables too short")
-    nblocks = _g_blocks(half)
-    partial = torch.empty(nblocks, 3, 8, dtype=torch.int32, device=A.device)
+    nblocks = _g_blocks(half, rlog, lw, EL is not None)
+    dev = A.device
+    partial = torch.empty(nblocks, 3, 8, dtype=torch.int32, device=dev)
+    out = torch.empty(1, 3, 8, dtype=torch.int32, device=dev)
+    if ticket is None:
+        ticket = new_ticket(dev)
     CUBICEQ.call("sp2_cubiceq_evals", half, hi_len, rlog, int(zero_check), int(fallback),
                  shard, lw, None if EL is None else EL.data_ptr(), ER.data_ptr(),
                  A.data_ptr(), B.data_ptr(), C.data_ptr(), partial.data_ptr(), nblocks,
-                 field_words(spec))
-    return partial
+                 out.data_ptr(), ticket.data_ptr(), field_words(spec))
+    return out

@@ -186,8 +186,7 @@ def round_finish(mode: int, partial: torch.Tensor, ctx: torch.Tensor,
                  spec: FieldSpec, consts=None, zero_check: bool = False,
                  fallback: bool = False) -> None:
     """Kernel F: finish one round from its sums, (rows, sums, 8) added up
-    (kernel A's or B's one row, kernel G's per-block partials, or the
-    ranks' gathered rows).
+    (kernel A's, B's or G's one row, or the ranks' gathered rows).
     ``ctx`` (4, 8): the running claim, eq prefix P and the 64-byte
     transcript state, updated in place; the round's coefficients go to
     ``coeffs_out`` (k, 8) and [r, 1 - r] to ``r_out`` (2, 8), Montgomery;
@@ -398,16 +397,18 @@ class SumcheckProverCubicEq:
         place), round 0 reading the upper half's first ``hi_len`` global
         rows.  On rank ``shard`` of 2^lw the rows are the global rows
         shard + 2^lw i (kernel G weighs them so), and ``gather`` joins a
-        round's partial sums across the ranks."""
+        round's sums across the ranks."""
         spec = self.spec
+        ticket = new_ticket(vecs[0].device)
         for j in range(j0, j1):
             half = n // 2
             # round 0's live upper rows of this rank: ceil((hi_len - shard) / 2^lw)
             live = min(half, max(0, -(-(hi_len - shard) >> lw))) if j == 0 else half
             zc, fb = plan["zero_check"] and j == 0, plan["fallback"][j]
             EL, ER, rlog = plan["tables"][j]
-            part = cubiceq_evals(*vecs, half, live, EL, ER, rlog, zc, fb, spec, shard, lw)
-            round_finish(GRUEN, part if gather is None else gather(part), ctx, coeffs[j],
+            sums = cubiceq_evals(*vecs, half, live, EL, ER, rlog, zc, fb, spec, shard, lw,
+                                 ticket)
+            round_finish(GRUEN, sums if gather is None else gather(sums), ctx, coeffs[j],
                          rs[j], round0 + j, spec, plan["consts"][j], zc, fb)
             if live == half:
                 bind_dev(vecs, n, rs[j], spec)

@@ -50,13 +50,19 @@ def test_commit_zeros_matches_jax(pcs):
     assert got.comm == [jeng.curve.scalar_mul(b, jck.h) for b in blind.blind]
 
 
-def test_bind_matches_jax_direct_opening(pcs):
+@pytest.mark.parametrize("entries", ["random", "p-1"])
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+def test_bind_matches_jax_direct_opening(pcs, rows, entries):
+    """Kernel 4's plain version (the port's row bind) against JAX's host
+    direct opening, v = L * poly-as-matrix, at 1-8 rows of WIDTH."""
     eng, jeng, _, jck, _, _ = pcs
     F = eng.scalar
-    rows = 4
-    poly = rand_ints(F.modulus, rows * WIDTH, 2)
-    point = rand_ints(F.modulus, 5, 3)  # 2 row variables, 3 column variables
-    L = eq_evals_host(jeng.scalar, point[:2])
+    p = F.modulus
+    poly = (rand_ints(p, rows * WIDTH, 2) if entries == "random"
+            else [p - 1] * (rows * WIDTH))
+    nr = rows.bit_length() - 1  # row variables, then 3 column variables
+    point = rand_ints(p, nr + 3, 3)
+    L = eq_evals_host(jeng.scalar, point[:nr])
     got = hyrax_bind(to_device(L, F, "cpu", mont=True),
                      to_device(poly, F, "cpu", mont=True).reshape(rows, WIDTH, 8), F)
     v, _ = jeng.pcs.prove_direct(jck, poly, JaxBlind([0] * rows), point)

@@ -13,8 +13,8 @@ result is held against the host's (transcript/keccak.py, Python
 integers).  Then times kernel F of the package found in DIR (default:
 this checkout; e.g. the parent commit's package unpacked under scratch/)
 in each mode (Gruen with zero_check, plain and with fallback, cubic
-evals, quad, inner round 0), from one row of sums and from 1024 rows (a
-Gruen round's per-block partials): milliseconds a launch by CUDA events
+evals, quad, inner round 0), from one row of sums and from 1024 rows (the
+most rows of sums it was given before kernel G finished its own): milliseconds a launch by CUDA events
 over back-to-back launches, and the kernel's own device microseconds by
 torch.profiler.  Needs one CUDA card and the CUDA toolkit; prints the
 card's name and power limit, then one JSON object a line.
