@@ -136,6 +136,7 @@ import sys
 import time
 
 import torch
+from torch.autograd import DeviceType
 
 # Published H100 SXM rates (NVIDIA data sheet; see PERF.md): HBM bandwidth,
 # and 32-bit integer multiply-adds: 64 lanes per SM (half the 128 FP32
@@ -195,18 +196,16 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over reps runs, by torch.profiler:
-    the kernels' own time, without the host's enqueue (a launch of a few
-    microseconds' work is paced by its Python wrapper under CUDA events)."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages())
-    return total / 1e3 / reps if total > 0 else None  # None: the profiler saw no kernel
+def device_ms(fn, reps: int) -> float | None:
+    """Device milliseconds of one call of fn() by torch.profiler over reps
+    calls, after a dropped warm-up step (``tools/_timing.py``): the
+    kernels' own time, without the host's enqueue (a launch of a few
+    microseconds' work is paced by its Python wrapper under CUDA events).
+    None where it recorded no launch.  fn runs reps + 2 times."""
+    from tools._timing import call_us, kernel_us
+
+    us = call_us(kernel_us(fn, reps), reps)
+    return None if us is None else us / 1e3
 
 
 def once_ms(fn):
@@ -490,7 +489,7 @@ def bind_first_case(name: str, mode: int, n: int, vecs: list, r: int, F, reps: i
     del k_vecs, p_vecs
     if not reps:
         return None, pms, None
-    copies = iter([[v.clone() for v in vecs] for _ in range(2 * reps + 2)])
+    copies = iter([[v.clone() for v in vecs] for _ in range(2 * reps + 3)])
     ms = cuda_ms(lambda: kernel(next(copies)), reps)
     dms = device_ms(lambda: kernel(next(copies)), reps)
     return ms, pms, dms
@@ -971,6 +970,8 @@ def kernel_group(name: str) -> str | None:
         return "eq"
     if name.startswith("round_finish_kernel"):
         return "F"
+    if any(k in name for k in ("nifs_round_kernel", "small_round_kernel", "fold_kernel")):
+        return "nifs"  # NIFS kernels 3 and 4: the rounds and the folds
     if "round_kernel<" in name:
         return "A"  # kernel A's rounds, the previous bind folded in
     if "cubiceq_evals_kernel" in name:
@@ -981,6 +982,8 @@ def kernel_group(name: str) -> str | None:
         return "bind"  # each sum-check's last bind, and kernel G's binds
     if name.startswith("sum_partials"):
         return "sum_partials"
+    if name.startswith("reduce_pairs"):
+        return "reduce_pairs"
     return None
 
 
@@ -988,10 +991,11 @@ def print_redesigned(path: str, groups: dict, dev_ms: float) -> None:
     share = {g: [ms, n, round(ms / dev_ms, 4)] for g, (ms, n) in groups.items()}
     print(f"{path} prove, redesigned kernels: SpMV, comb rows, kernel C (msm), eq "
           "tables, kernel F, kernel A's rounds and the bind, kernel G, kernel 4 "
-          "(hyrax_bind) (device ms, launches, share of the prove's "
+          "(hyrax_bind), NIFS kernels 3 and 4 (device ms, launches, share of the prove's "
           f"{dev_ms:.4f} device ms): {json.dumps(share)}", flush=True)
-    if "sum_partials" in groups:
-        raise RuntimeError(f"{path} prove launched sum_partials_kernel")
+    for gone in ("sum_partials", "reduce_pairs"):
+        if gone in groups:
+            raise RuntimeError(f"{path} prove launched {gone}_kernel")
 
 
 def sumcheck_counts(counts: dict, want: dict, path: str) -> None:
@@ -1005,15 +1009,28 @@ def sumcheck_counts(counts: dict, want: dict, path: str) -> None:
 
 def profiled_device_ms(fn) -> tuple[float, float, list, dict]:
     """(wall s, device ms, top kernels, {group: [ms, launches]} of the SpMV
-    and comb rows kernels) of one run of fn under torch.profiler."""
+    and comb rows kernels) of one run of fn under torch.profiler.  A
+    warm-up step of small kernels comes first and its records are dropped
+    (see ``tools/_timing.py``); only the device's own records (kernels, copies) are
+    summed: a CPU op's self device time repeats its kernels', and so does
+    the step's annotation on the device."""
     act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=act, schedule=sched) as prof:
+        x = torch.zeros(1 << 16, device="cuda")
+        for _ in range(200):
+            x.add_(1)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        prof.step()
     dev_us = sorted(((e.self_device_time_total, e.key, e.count)
-                     for e in prof.key_averages() if e.self_device_time_total > 0),
+                     for e in prof.key_averages()
+                     if e.self_device_time_total > 0 and e.device_type != DeviceType.CPU
+                     and not e.key.startswith("ProfilerStep")),
                     reverse=True)
     top = [(k[:60], round(t / 1e3, 4), c) for t, k, c in dev_us[:14]]
     groups: dict = {}
@@ -1319,6 +1336,7 @@ def run_neutronnova(engine, dev, kernels):
     proof, prep = NN.prove(pk, steps, core, prep, is_small=True, rng=det(22))
     torch.cuda.synchronize()
     phases["first_prove_s"] = time.perf_counter() - t0
+    abc_before = prep.cache["ABC"].clone()  # filled by the first prove
     first_blob = neutronnova_proof_to_bytes(proof, engine)  # the mesh phase's reference
     t0 = time.perf_counter()
     proof, prep = NN.prove(pk, steps, core, prep, is_small=True, rng=det(23))
@@ -1362,6 +1380,14 @@ def run_neutronnova(engine, dev, kernels):
             ("sp2_nifs_small_round",) if small_ok else ()):
         if per_prove["nifs"].get(e, 0) <= 0:
             raise RuntimeError(f"nifs.{e} was not launched by a timed NN prove")
+    ell_b = (NN_STEPS - 1).bit_length()
+    want_nifs = {"sp2_nifs_round": ell_b - 1 if small_ok else ell_b, "sp2_nifs_fold": 1,
+                 "sp2_nifs_small_round": 1 if small_ok else 0, "sp2_weighted_fold": 2,
+                 "sp2_nifs_to_small": 0}
+    got_nifs = {e: per_prove["nifs"].get(e, 0) for e in want_nifs}
+    if got_nifs != want_nifs:
+        raise RuntimeError(f"NN: NIFS launches a prove {got_nifs}, expected {want_nifs}")
+    print(f"NN: NIFS launches a prove, as expected: {json.dumps(got_nifs)}", flush=True)
     m, mq = S.num_cons.bit_length() - 1, S.num_vars.bit_length() - 1
     sumcheck_counts(per_prove["sumcheck"],
                     {"sp2_round_evals": 2, "sp2_round_bind_evals": m + mq - 2, "sp2_bind": 2,
@@ -1394,6 +1420,10 @@ def run_neutronnova(engine, dev, kernels):
     phases["proof_bytes"] = len(blob)
     print("NN prove device time by kernel (ms, launches): " + json.dumps(top), flush=True)
     print_redesigned("NN", groups, dev_ms)
+    if not torch.equal(prep.cache["ABC"], abc_before):
+        raise RuntimeError("NN: the proves changed the prep cache's grid")
+    print("NN: the prep cache's grid is bit-identical after the timed and profiled "
+          "proves", flush=True)
     print("NN phases: " + json.dumps(phases), flush=True)
     print("NN setup spans ms: " + json.dumps(spans_by_name(spans_setup)), flush=True)
     print("NN prep spans ms: " + json.dumps(spans_by_name(spans_prep)), flush=True)
@@ -1416,7 +1446,7 @@ def compare_nn_kernels(pk, prep, proof, nn_launches: dict):
     from spartan2_tpu_torch.polys.eq import pow_generators
     from spartan2_tpu_torch.r1cs.sparse import spmv_batched, spmv_batched_plain
     from spartan2_tpu_torch.snark.neutronnova import weights_from_r
-    from spartan2_tpu_torch.sumcheck.device import pow_table, pow_table_plain
+    from spartan2_tpu_torch.sumcheck.device import new_ticket, pow_table, pow_table_plain
     from spartan2_tpu_torch.sumcheck.nifs import (
         _fold_plain, nifs_fold, nifs_round, nifs_round_plain, small_round, to_small,
         weighted_fold, weighted_fold_plain)
@@ -1451,6 +1481,7 @@ def compare_nn_kernels(pk, prep, proof, nn_launches: dict):
            sc_calls.get("sp2_pow_table", 0), "sp2_pow_table entry calls",
            cuda_ms(lambda: pow_table(gens, F), reps), pms, m * 32 + n * 32,
            n - 1, "spartan2_tpu_torch/csrc/sumcheck.cu")
+    out[-1]["device_ms"] = device_ms(lambda: pow_table(gens, F), reps)
 
     # kernel 2: Az, Bz, Cz of all 16 steps in one launch
     mats = [S.dev[k] for k in "ABC"]
@@ -1465,57 +1496,99 @@ def compare_nn_kernels(pk, prep, proof, nn_launches: dict):
            nnz * 36 + I * gathered(mats) * 32 + 3 * I * n * 32, I * nnz,
            "spartan2_tpu_torch/csrc/spmv.cu")
 
-    # kernel 3: the NIFS round t = 1 (fold 16 -> 8, 4 pairs) on the prep
-    # cache's real grid, on copies made before the clock starts
+    # kernel 3: the NIFS rounds on the prep cache's real grid, which they
+    # only read, each folding into a buffer of its own: t = 1 (16 -> 8, 4
+    # pairs), t = 2 (8 -> 4), t = 3 (4 -> 2), then round 0 without the gate.
+    # A round's wrapper pulls [e0, quad] to the host, so CUDA events include
+    # that round trip; the profiler's device time is the kernel's own.  Per
+    # folded pair and column: 6 bind products, 2 products and 2 unreduced
+    # ones (half each, as bind_first_bound counts them)
     ABC = prep.cache["ABC"]
+    abc_before = ABC.clone()
     E = pow_table(gens, F)
+    tk = new_ticket(dev)  # one arrival counter, as a prove's rounds share one
     r1 = rnd.randrange(F.modulus)
     ell_b = I.bit_length() - 1
-    w4 = rand_field(I // 4, F, gen, dev)
-    g1 = ABC.clone()
-    got = nifs_round(g1[0], g1[1], g1[2], E, w4, r1, True, F)
-    g2 = ABC.clone()
-    pms = plain_ms(f"nifs_round t=1 ({I} -> {I // 2})", got,
-                   lambda: nifs_round_plain(g2[0], g2[1], g2[2], E, w4, r1, True, F))
-    same_or_raise("nifs_round folded grid", g1[:, : I // 2], g2[:, : I // 2], F)
-    del g1, g2
-    # the prove's round t = 1 (after the small-value round 0): its wrapper
-    # pulls [e0, quad] to the host, so CUDA events include that round trip;
-    # the profiler's device time is the kernels' own (fold, sums, reduce)
-    copies = iter([ABC.clone() for _ in range(2 * reps + 2)])
-    ms = cuda_ms(lambda: nifs_round(*next(copies), E, w4, r1, True, F), reps)
-    dms = device_ms(lambda: nifs_round(*next(copies), E, w4, r1, True, F), reps)
-    del copies
-    record("nifs_round", "spartan2_tpu/sumcheck/zk_device.py:365",
-           nifs_calls.get("sp2_nifs_round", 0), "sp2_nifs_round entry calls (3 a prove: "
-           "rounds t = 1, 2, 3; this is t = 1's shape, a 16-instance grid folded to 8)",
-           ms, pms,
-           3 * I * n * 32 + 3 * (I // 2) * n * 32 + n * 32 + (I // 4) * 32 + 2 * 32,
-           3 * (I // 2) * n + 4 * (I // 4) * n)
-    out[-1]["device_ms"] = dms
-    # the final fold 2 -> 1
-    g1, g2 = ABC[:, :2].clone(), ABC[:, :2].clone()
-    nifs_fold(g1[0], g1[1], g1[2], r1, F)
-    pms = plain_ms("nifs_fold 2 -> 1", g1[:, 0],
-                   lambda: (_fold_plain((g2[0], g2[1], g2[2]), r1, F), g2[:, 0])[1])
-    copies = iter([ABC[:, :2].clone() for _ in range(reps + 1)])
-    ms = cuda_ms(lambda: nifs_fold(*next(copies), r1, F), reps)
-    del copies, g1, g2
+    for t, I_in in [(t, I >> (t - 1)) for t in range(1, ell_b)] + [(0, I)]:
+        bind = t > 0
+        pairs = (I_in // 2 if bind else I_in) // 2
+        wq = rand_field(pairs, F, gen, dev)
+        src = tuple(ABC[j, :I_in] for j in range(3))
+        fo = want_g = None
+        if bind:
+            fo = torch.empty(3, I_in // 2, n, 8, dtype=torch.int32, device=dev)
+            want_g = torch.empty_like(fo)
+        name = (f"nifs_round t={t} ({I_in} -> {I_in // 2}, {pairs} pairs)" if bind else
+                f"nifs_round t=0 (Montgomery, I={I}, {pairs} pairs; kernel 4's alternative)")
+        got = nifs_round(*src, E, wq, r1, bind, F, fo, tk)
+        pms = plain_ms(name, got, lambda: nifs_round_plain(*src, E, wq, r1, bind, F, want_g))
+        if bind:
+            same_or_raise(f"{name} folded grid", fo, want_g, F)
+
+        def call():
+            nifs_round(*src, E, wq, r1, bind, F, fo, tk)
+
+        ms, dms = cuda_ms(call, reps), device_ms(call, reps)
+        nbytes = ((3 * I_in * n * 32 + 3 * (I_in // 2) * n * 32) if bind
+                  else 5 * pairs * n * 32) + n * 32 + pairs * 32 + 2 * 32
+        muls = (3 * (I_in // 2) * n if bind else 0) + 3 * pairs * n
+        if t == 1:
+            record("nifs_round", "spartan2_tpu/sumcheck/zk_device.py:365",
+                   nifs_calls.get("sp2_nifs_round", 0),
+                   "sp2_nifs_round entry calls (3 a prove: rounds t = 1, 2, 3; this is "
+                   "t = 1's shape, a 16-instance grid folded to 8)", ms, pms, nbytes, muls)
+            out[-1]["device_ms"] = dms
+        else:
+            detail.append({**detail_record(name, ms, pms, nbytes, muls), "device_ms": dms})
+    # the final fold 2 -> 1, into a buffer of its own
+    src = tuple(ABC[j, :2] for j in range(3))
+    fin = torch.empty(3, 1, n, 8, dtype=torch.int32, device=dev)
+    want_f = torch.empty_like(fin)
+    nifs_fold(*src, r1, F, fin)
+    pms = plain_ms("nifs_fold 2 -> 1", fin,
+                   lambda: (_fold_plain(src, r1, F, tuple(want_f)), want_f)[1])
+
+    def call():
+        nifs_fold(*src, r1, F, fin)
+
     record("nifs_final_fold", "spartan2_tpu/sumcheck/zk_device.py:459",
-           nifs_calls.get("sp2_nifs_fold", 0), "sp2_nifs_fold entry calls", ms, pms,
-           3 * 3 * n * 32, 3 * n)
-    # the witness fold: 16 precommitted prefixes x 16 weights
+           nifs_calls.get("sp2_nifs_fold", 0), "sp2_nifs_fold entry calls", cuda_ms(call, reps),
+           pms, 3 * 3 * n * 32, 3 * n)
+    out[-1]["device_ms"] = device_ms(call, reps)
+    # the witness folds, each row read where it lies: the 16 precommitted
+    # prefixes x 16 weights, and W_fold + c_eval core_W; per column I
+    # unreduced products and one reduction (half a product each)
     eff = S.num_shared + S.num_precommitted
-    W = rand_field(I * eff, F, gen, dev).reshape(I, eff, 8)
-    w16 = to_device(weights_from_r(F, [rnd.randrange(F.modulus) for _ in range(ell_b)],
-                                   I), F, dev, mont=True)
-    pms = plain_ms(f"weighted_fold {I} x {eff}", weighted_fold(W, w16, F),
-                   lambda: weighted_fold_plain(W, w16, F))
-    record("weighted_fold", "spartan2_tpu/sumcheck/zk_device.py:477",
-           nifs_calls.get("sp2_weighted_fold", 0),
-           "sp2_weighted_fold entry calls (the witness fold and W_fold + c_eval core_W)",
-           cuda_ms(lambda: weighted_fold(W, w16, F), reps), pms,
-           I * eff * 32 + I * 32 + eff * 32, I * eff)
+    for count, width in ((I, eff), (2, S.num_vars)):
+        rows = [rand_field(S.num_vars, F, gen, dev)[:width] for _ in range(count)]
+        wts = to_device(weights_from_r(F, [rnd.randrange(F.modulus) for _ in range(ell_b)],
+                                       I), F, dev, mont=True) if count == I else \
+            rand_field(count, F, gen, dev)
+        name = f"weighted_fold {count} x {width}"
+        pms = plain_ms(name, weighted_fold(rows, wts, F),
+                       lambda: weighted_fold_plain(torch.stack(rows), wts, F))
+
+        def call():
+            weighted_fold(rows, wts, F)
+
+        ms, dms = cuda_ms(call, reps), device_ms(call, reps)
+        nbytes, muls = count * width * 32 + count * 32 + width * 32, (count + 1) * width / 2
+        if count == I:
+            record("weighted_fold", "spartan2_tpu/sumcheck/zk_device.py:477",
+                   nifs_calls.get("sp2_weighted_fold", 0),
+                   "sp2_weighted_fold entry calls (the witness fold and W_fold + c_eval "
+                   "core_W)", ms, pms, nbytes, muls)
+            out[-1]["device_ms"] = dms
+        else:
+            detail.append({**detail_record(name, ms, pms, nbytes, muls), "device_ms": dms})
+    # past 256 rows (the rows' addresses a launch takes) a call launches
+    # once a chunk, each adding into the output
+    rows = [rand_field(64, F, gen, dev) for _ in range(300)]
+    wts = rand_field(300, F, gen, dev)
+    plain_ms("weighted_fold 300 x 64 (two launches)", weighted_fold(rows, wts, F),
+             lambda: weighted_fold_plain(torch.stack(rows), wts, F))
+    if not torch.equal(ABC, abc_before):
+        raise RuntimeError("nifs: the rounds changed the prep cache's grid")
 
     # kernel 4: the gate over the real grid, then round 0 on small integers;
     # each from_mont is a lone reduction, half a Montgomery product
@@ -1532,7 +1605,7 @@ def compare_nn_kernels(pk, prep, proof, nn_launches: dict):
            cuda_ms(lambda: to_small(ABC[0], ABC[1], ABC[2], F), reps), pms,
            3 * I * n * 32 + 3 * I * n * 16, 3 * I * n / 2)
     w8 = rand_field(I // 2, F, gen, dev)
-    got = small_round(S_small, E, w8, F)
+    got = small_round(S_small, E, w8, F, tk)
     pms = plain_ms(f"nifs_small_round (I={I}, {I // 2} pairs)", got,
                    lambda: limbs_to_ints(small_round_plain(S_small, E, w8, F), F))
     mont = nifs_round(ABC[0], ABC[1], ABC[2], E, w8, 0, False, F)  # no fold: no write
@@ -1540,18 +1613,17 @@ def compare_nn_kernels(pk, prep, proof, nn_launches: dict):
         raise RuntimeError("nifs_small_round differs from the Montgomery round 0")
     print(f"small round 0 {'equals' if ok else '(gate failed; not compared with)'} the "
           "Montgomery round 0", flush=True)
-    # what kernel 4 stands in for: kernel 3's round 0 on the same grid
-    detail.append(detail_record(
-        f"nifs_round t=0 (Montgomery, I={I}, {I // 2} pairs; kernel 4's alternative)",
-        cuda_ms(lambda: nifs_round(ABC[0], ABC[1], ABC[2], E, w8, 0, False, F), reps),
-        None, 5 * (I // 2) * n * 32 + n * 32, 4 * (I // 2) * n))
+
+    def call():
+        small_round(S_small, E, w8, F, tk)
+
     # per pair entry: 9 + 9 products of 32-bit words for the two integer
     # products, 2 x 40 for the multiples of E; 2 multiply-adds each
     record("nifs_small_round", "spartan2_tpu/sumcheck/zk_device.py:445",
            nifs_calls.get("sp2_nifs_small_round", 0),
-           "sp2_nifs_small_round entry calls",
-           cuda_ms(lambda: small_round(S_small, E, w8, F), reps), pms,
+           "sp2_nifs_small_round entry calls", cuda_ms(call, reps), pms,
            5 * (I // 2) * n * 16 + n * 32, (I // 2) * n * 196 / IMAD_PER_MONT_MUL)
+    out[-1]["device_ms"] = device_ms(call, reps)
 
     # kernel C at R = 15, I = 16: the prover's fold of the steps'
     # precommitted rows with this run's points
@@ -1925,7 +1997,7 @@ def check_sumchecks(pk, prep, circuit, launches: dict, probe, expect_peeled: boo
         if not (torch.equal(ctx_k.cpu(), cpu[1]) and all(
                 torch.equal(a.cpu(), b) for a, b in zip(slots, cslots))):
             raise RuntimeError(f"kernel F ({name}) differs from its plain version")
-        ctxs = iter([cx.clone() for _ in range(42)])
+        ctxs = iter([cx.clone() for _ in range(43)])
 
         def f_run():
             round_finish(mode, sums, next(ctxs), *slots, 9, F, cs, zc, fb)
@@ -3106,7 +3178,7 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln] if log.exists() else []
         print(f"ptxas {k.name}: " + " | ".join(regs[:12]), flush=True)
     for k in kernels:
-        if k.name in ("cubiceq", "hyrax_bind"):  # kernels G and 4
+        if k.name in ("cubiceq", "hyrax_bind", "nifs"):  # kernels G, 4 and NIFS 3, 4
             print(f"ptxas {k.name}: every kernel 0 bytes of stack and spills "
                   f"({len(zero_stack_or_raise(k))} kernels)", flush=True)
     dev = torch.device("cuda")

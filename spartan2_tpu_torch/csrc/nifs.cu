@@ -15,14 +15,25 @@
 // sum-check bind.  E (n) and the pair weights w are Montgomery.
 //
 // Kernel 3 entries:
-//   sp2_nifs_round     if bind_first, fold the I instances in place into
-//                      I / 2 with r (x_i <- x_2i + r (x_2i+1 - x_2i));
-//                      then per (pair q, chunk) the block partials of
-//                      sum_k E_k (Ae Be - Ce) and sum_k E_k (Ao - Ae)(Bo - Be),
-//                      then one reduction block: out[t] = sum_q w_q S_q[t]
-//                      (Montgomery).
-//   sp2_nifs_fold      the fold alone (the final I = 2 -> 1 fold).
-//   sp2_weighted_fold  out_k = sum_i w_i W_i,k (witness folds).
+//   sp2_nifs_round     one launch a round.  If bind_first, each thread
+//                      takes a column k of a folded pair q: it reads
+//                      instances 4q .. 4q + 3 of A, B, C, binds them with r
+//                      in registers (x'_{2q+s} = x_{4q+2s} + r (x_{4q+2s+1}
+//                      - x_{4q+2s})), writes the two folded rows to the
+//                      OUTPUT grid (never in place: the block of pair q / 2
+//                      still reads rows 2q, 2q + 1 of the input), and adds
+//                      E_k (Ae Be - Ce) and E_k (Ao - Ae)(Bo - Be) to its
+//                      two sums (without bind_first, the pairs of the input
+//                      as they are).  Products that only feed a sum are
+//                      added unreduced and reduced once a thread and sum;
+//                      the last block to arrive finishes
+//                      out[t] = sum_q w_q S_q[t] (Montgomery, finish.cuh).
+//   sp2_nifs_fold      the fold alone into an output grid, a thread an
+//                      entry (the final I = 2 -> 1 fold).
+//   sp2_weighted_fold  out_k = sum_i w_i W_i,k (witness folds), a thread a
+//                      column, the I products unreduced, one reduction; the
+//                      rows by their pointers (at most WF_MAX_ROWS a launch),
+//                      added to out when ``accumulate``.
 // Kernel 4 entries (round 0 on small integers):
 //   sp2_nifs_to_small  from_mont, then the signed representative v or
 //                      v - p, kept when its magnitude is below 2^72 (JAX's
@@ -31,100 +42,122 @@
 //                      magnitude m0, m1, m2 and a sign word (1 negative);
 //                      entries outside the window become zeros and clear
 //                      the grid's ok word.
-//   sp2_nifs_small_round  round 0's two sums from the small grid: per
-//                      entry the exact integer t = Ae Be - Ce (or
-//                      (Ao - Ae)(Bo - Be)), |t| < 2^147, times E_k (the
-//                      256-bit Montgomery word), into a positive and a
-//                      negative 14-word (448-bit) sum per thread; each sum
-//                      is Montgomery-reduced once (REDC gives sum E t, the
-//                      plain value, since E carries R), then block partials
-//                      and the reduction block as in kernel 3.  The output
-//                      is plain (not Montgomery): w_mont * plain * R^-1.
+//   sp2_nifs_small_round  round 0's two sums from the small grid, one
+//                      launch: per entry the exact integer t = Ae Be - Ce
+//                      (or (Ao - Ae)(Bo - Be)), |t| < 2^147, times E_k (the
+//                      256-bit Montgomery word), into one signed 14-word
+//                      (448-bit, two's complement) sum a thread and sum; its
+//                      magnitude is Montgomery-reduced once and the sign put
+//                      back (REDC gives sum E t, the plain value, since E
+//                      carries R), then the weighted finish as in kernel 3.
+//                      The output is plain (not Montgomery): w_mont * plain
+//                      * R^-1.
 //
-// Bound: a round reads the grid once (5 of every 6 entries of a pair:
-// Ae, Ao, Be, Bo, Ce) plus E, and does 4 Montgomery products per pair
-// entry (kernel 3); the small round reads 16 bytes per entry instead of
+// Bound: a round reads the grid once (with bind_first all of it, else 5 of
+// every 6 entries of a pair: Ae, Ao, Be, Bo, Ce) plus E and writes the
+// folded half; per folded pair and column 6 bind products, 2 reduced and 2
+// unreduced products.  The small round reads 16 bytes per entry instead of
 // 32 and does 9 + 40 32x32-bit products per sum instead of 2 Montgomery
 // products.
 
 #include "field.cuh"
+#include "finish.cuh"
 
 using namespace sp2;
 
 constexpr int NT = 256;
 constexpr int WACC = 14;  // 448-bit accumulators
+// A round's grid: the pairs on blockIdx.y, each over the largest power of
+// two of blocks that keeps all of them within NIFS_MAX_BLOCKS (two blocks
+// of NT an SM of the H100's 132), a column a thread where that suffices.
+constexpr int NIFS_MAX_BLOCKS = 264;
+// The folds: a block of WF_NT threads; the weighted fold's rows by value.
+constexpr int WF_NT = 128;
+constexpr int WF_MAX_ROWS = 256;
+
+struct Grid3 {
+  uint32_t* p[3];  // A, B, C: (rows, n) each
+};
+
+struct Rows {
+  const uint32_t* p[WF_MAX_ROWS];
+};
 
 __device__ __forceinline__ uint32_t* grid_pick(uint32_t* A, uint32_t* B, uint32_t* C) {
   return blockIdx.y == 0 ? A : (blockIdx.y == 1 ? B : C);
 }
 
-// Fold I instances into I / 2 in place: a thread owns column k and walks
-// the pairs in order, so the write to row i never clobbers a row a later
-// pair reads (rows 2i', 2i' + 1 > i for i' > i).
-__global__ void fold_kernel(int I, size_t n, uint32_t* A, uint32_t* B, uint32_t* C,
-                            Fe r, Field F) {
-  uint32_t* X = grid_pick(A, B, C);
+// Rows 2q', 2q' + 1 of the folded grid from rows 4q' .. 4q' + 3 of x at
+// column k (i0 = 4q' n + k), written to y (o0 = 2q' n + k) -> (even, odd).
+__device__ __forceinline__ void bind_two(const uint32_t* x, uint32_t* y, size_t i0,
+                                         size_t o0, size_t n, const Fe& r, Fe& ev, Fe& od,
+                                         const Field& F) {
+  ev = fe_bind_cc(fe_load(x, i0), fe_load(x, i0 + n), r, F);
+  od = fe_bind_cc(fe_load(x, i0 + 2 * n), fe_load(x, i0 + 3 * n), r, F);
+  fe_store(y, o0, ev);
+  fe_store(y, o0 + n, od);
+}
+
+// Kernel 3's round: pair q = blockIdx.y of the (folded) grid.
+template <bool BIND>
+__global__ void __launch_bounds__(NT) nifs_round_kernel(size_t n, Grid3 in, Grid3 fo,
+                                                        const uint32_t* E, Fe r,
+                                                        uint32_t* partial, const uint32_t* w,
+                                                        uint32_t* out, unsigned* ticket,
+                                                        Field F) {
+  const int q = blockIdx.y;
+  Acc s0 = acc_zero(), s1 = acc_zero();
   for (size_t k = blockIdx.x * (size_t)NT + threadIdx.x; k < n;
        k += (size_t)gridDim.x * NT) {
-    for (int i = 0; i < I / 2; ++i) {
-      Fe e = fe_load(X, (size_t)(2 * i) * n + k);
-      Fe o = fe_load(X, (size_t)(2 * i + 1) * n + k);
-      fe_store(X, (size_t)i * n + k, fe_add(e, fe_mul(r, fe_sub(o, e, F), F), F));
+    Fe ae, ao, be, bo, ce;
+    if (BIND) {
+      const size_t i0 = (size_t)(4 * q) * n + k, o0 = (size_t)(2 * q) * n + k;
+      Fe co;
+      bind_two(in.p[0], fo.p[0], i0, o0, n, r, ae, ao, F);
+      bind_two(in.p[1], fo.p[1], i0, o0, n, r, be, bo, F);
+      bind_two(in.p[2], fo.p[2], i0, o0, n, r, ce, co, F);
+    } else {
+      const size_t i0 = (size_t)(2 * q) * n + k;
+      ae = fe_load(in.p[0], i0);
+      ao = fe_load(in.p[0], i0 + n);
+      be = fe_load(in.p[1], i0);
+      bo = fe_load(in.p[1], i0 + n);
+      ce = fe_load(in.p[2], i0);
     }
+    const Fe e = fe_load(E, k);
+    fe_mul_acc(s0, e, fe_sub_cc(fe_mul_cc(ae, be, F), ce, F));
+    fe_mul_acc(s1, e, fe_mul_cc(fe_sub_cc(ao, ae, F), fe_sub_cc(bo, be, F), F));
   }
+  Fe s[2] = {acc_reduce(s0, F), acc_reduce(s1, F)};
+  store_block_sums<2, NT>(q, s, partial, F);
+  finish_weighted_sums<2, NT>(partial, w, out, ticket, F);
 }
 
-__device__ __forceinline__ void store_pair_partials(Fe s0, Fe s1, uint32_t* partial,
-                                                    const Field& F) {
-  const size_t at = ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 2;
-  Fe t0 = block_sum<NT>(s0, F);
-  if (threadIdx.x == 0) fe_store(partial, at, t0);
-  Fe t1 = block_sum<NT>(s1, F);
-  if (threadIdx.x == 0) fe_store(partial, at + 1, t1);
+// Row i = blockIdx.z of the output <- x_2i + r (x_2i+1 - x_2i), a thread
+// an entry; blockIdx.y picks A, B or C.
+__global__ void __launch_bounds__(WF_NT) fold_kernel(size_t n, Grid3 in, Grid3 fo, Fe r,
+                                                     Field F) {
+  const uint32_t* x = grid_pick(in.p[0], in.p[1], in.p[2]);
+  uint32_t* y = grid_pick(fo.p[0], fo.p[1], fo.p[2]);
+  const size_t i0 = (size_t)(2 * blockIdx.z) * n, o0 = (size_t)blockIdx.z * n;
+  for (size_t k = blockIdx.x * (size_t)WF_NT + threadIdx.x; k < n;
+       k += (size_t)gridDim.x * WF_NT)
+    fe_store(y, o0 + k, fe_bind_cc(fe_load(x, i0 + k), fe_load(x, i0 + n + k), r, F));
 }
 
-// Pair q = blockIdx.y of the (folded) grid, chunk blockIdx.x.
-__global__ void round_evals_kernel(size_t n, const uint32_t* A, const uint32_t* B,
-                                   const uint32_t* C, const uint32_t* E,
-                                   uint32_t* partial, Field F) {
-  const size_t ev = (size_t)(2 * blockIdx.y) * n, od = ev + n;
-  Fe s0 = fe_zero(), s1 = fe_zero();
-  for (size_t k = blockIdx.x * (size_t)NT + threadIdx.x; k < n;
-       k += (size_t)gridDim.x * NT) {
-    Fe e = fe_load(E, k);
-    Fe ae = fe_load(A, ev + k), ao = fe_load(A, od + k);
-    Fe be = fe_load(B, ev + k), bo = fe_load(B, od + k);
-    Fe ce = fe_load(C, ev + k);
-    s0 = fe_add(s0, fe_mul(e, fe_sub(fe_mul(ae, be, F), ce, F), F), F);
-    s1 = fe_add(s1, fe_mul(e, fe_mul(fe_sub(ao, ae, F), fe_sub(bo, be, F), F), F), F);
-  }
-  store_pair_partials(s0, s1, partial, F);
-}
-
-// out[t] = sum_q w_q * (sum_c partial[q, c, t]), one block.
-__global__ void reduce_pairs_kernel(int pairs, int nchunks, const uint32_t* partial,
-                                    const uint32_t* w, uint32_t* out, Field F) {
-  for (int t = 0; t < 2; ++t) {
-    Fe acc = fe_zero();
-    for (int q = 0; q < pairs; ++q) {
-      Fe s = fe_zero();
-      for (int c = threadIdx.x; c < nchunks; c += NT)
-        s = fe_add(s, fe_load(partial, ((size_t)q * nchunks + c) * 2 + t), F);
-      s = block_sum<NT>(s, F);
-      if (threadIdx.x == 0) acc = fe_add(acc, fe_mul(fe_load(w, q), s, F), F);
-    }
-    if (threadIdx.x == 0) fe_store(out, t, acc);
-  }
-}
-
-__global__ void weighted_fold_kernel(int I, size_t n, const uint32_t* w,
-                                     const uint32_t* W, uint32_t* out, Field F) {
-  for (size_t k = blockIdx.x * (size_t)NT + threadIdx.x; k < n;
-       k += (size_t)gridDim.x * NT) {
-    Fe acc = fe_zero();
-    for (int i = 0; i < I; ++i)
-      acc = fe_add(acc, fe_mul(fe_load(w, i), fe_load(W, (size_t)i * n + k), F), F);
-    fe_store(out, k, acc);
+// A thread a column: the I products unreduced, one reduction.
+__global__ void __launch_bounds__(WF_NT) weighted_fold_kernel(int I, size_t n,
+                                                              const uint32_t* w,
+                                                              const Rows rows,
+                                                              int accumulate,
+                                                              uint32_t* out, Field F) {
+  for (size_t k = blockIdx.x * (size_t)WF_NT + threadIdx.x; k < n;
+       k += (size_t)gridDim.x * WF_NT) {
+    Acc acc = acc_zero();
+    for (int i = 0; i < I; ++i) fe_mul_acc(acc, fe_load(w, i), fe_load(rows.p[i], k));
+    Fe s = acc_reduce(acc, F);
+    if (accumulate) s = fe_add_cc(s, fe_load(out, k), F);
+    fe_store(out, k, s);
   }
 }
 
@@ -243,7 +276,9 @@ __device__ __forceinline__ Sgn<6> sgn_mul3(const Sgn<3>& a, const Sgn<3>& b) {
   return r;
 }
 
-// acc (448 bits) += |t| * e, |t| < 2^160 (first 5 words), e < 2^256
+// acc (448 bits, two's complement) += t e, t signed with |t| < 2^160
+// (first 5 words), e < 2^256: |t| e is formed in 13 words, complemented
+// when t < 0 and added with t's sign as the carry in (word 13 all ones).
 __device__ __forceinline__ void acc_mul_add(uint32_t acc[WACC], const Sgn<6>& t,
                                             const Fe& e) {
   uint32_t prod[13];
@@ -260,10 +295,11 @@ __device__ __forceinline__ void acc_mul_add(uint32_t acc[WACC], const Sgn<6>& t,
     }
     prod[i + 8] = (uint32_t)c;
   }
-  uint64_t c = 0;
+  const uint32_t mask = t.neg ? 0xFFFFFFFFu : 0u;
+  uint64_t c = t.neg ? 1u : 0u;
 #pragma unroll
   for (int i = 0; i < WACC; ++i) {
-    uint64_t s = (uint64_t)acc[i] + (i < 13 ? prod[i] : 0u) + c;
+    uint64_t s = (uint64_t)acc[i] + ((i < 13 ? prod[i] : 0u) ^ mask) + c;
     acc[i] = (uint32_t)s;
     c = s >> 32;
   }
@@ -295,22 +331,37 @@ __device__ __forceinline__ Fe redc_wide(const uint32_t a[WACC], const Field& F) 
   return fe_reduce_once(t + 8, t[16], F);
 }
 
-__device__ __forceinline__ void acc_signed(uint32_t pos[WACC], uint32_t neg[WACC],
-                                           const Sgn<6>& t, const Fe& e) {
-  if (t.neg) acc_mul_add(neg, t, e);
-  else acc_mul_add(pos, t, e);
+// The field element of a signed sum (two's complement, |sum| < 2^447):
+// its magnitude reduced once, the sign put back.
+__device__ __forceinline__ Fe redc_signed(uint32_t acc[WACC], const Field& F) {
+  const bool neg = acc[WACC - 1] >> 31;
+  if (neg) {
+    uint64_t c = 1;
+#pragma unroll
+    for (int i = 0; i < WACC; ++i) {
+      uint64_t s = (uint64_t)(~acc[i]) + c;
+      acc[i] = (uint32_t)s;
+      c = s >> 32;
+    }
+  }
+  const Fe m = redc_wide(acc, F);
+  return neg ? fe_sub_cc(fe_zero(), m, F) : m;
 }
 
-// S: (3, I, n) small entries (4 words each), pair q = blockIdx.y.
-__global__ void small_round_kernel(int I, size_t n, const uint32_t* S, const uint32_t* E,
-                                   uint32_t* partial, Field F) {
+// S: (3, I, n) small entries (4 words each), pair q = blockIdx.y; the
+// blocks of a pair and the weighted finish as kernel 3's round.
+__global__ void __launch_bounds__(NT) small_round_kernel(int I, size_t n, const uint32_t* S,
+                                                         const uint32_t* E, uint32_t* partial,
+                                                         const uint32_t* w, uint32_t* out,
+                                                         unsigned* ticket, Field F) {
   const uint4* Sa = reinterpret_cast<const uint4*>(S);
   const uint4* Sb = Sa + (size_t)I * n;
   const uint4* Sc = Sb + (size_t)I * n;
-  const size_t ev = (size_t)(2 * blockIdx.y) * n, od = ev + n;
-  uint32_t p0[WACC], n0[WACC], p1[WACC], n1[WACC];
+  const int q = blockIdx.y;
+  const size_t ev = (size_t)(2 * q) * n, od = ev + n;
+  uint32_t a0[WACC], a1[WACC];
 #pragma unroll
-  for (int i = 0; i < WACC; ++i) p0[i] = n0[i] = p1[i] = n1[i] = 0;
+  for (int i = 0; i < WACC; ++i) a0[i] = a1[i] = 0;
   for (size_t k = blockIdx.x * (size_t)NT + threadIdx.x; k < n;
        k += (size_t)gridDim.x * NT) {
     Fe e = fe_load(E, k);
@@ -318,69 +369,108 @@ __global__ void small_round_kernel(int I, size_t n, const uint32_t* S, const uin
     Sgn<3> be = load_small(Sb, ev + k), bo = load_small(Sb, od + k);
     Sgn<3> ce = load_small(Sc, ev + k);
     // e0 term: Ae Be - Ce
-    Sgn<6> t0 = sgn_add<6>(sgn_mul3(ae, be), sgn_negate(widen3<6>(ce)));
-    acc_signed(p0, n0, t0, e);
+    acc_mul_add(a0, sgn_add<6>(sgn_mul3(ae, be), sgn_negate(widen3<6>(ce))), e);
     // quad term: (Ao - Ae)(Bo - Be); the differences fit 73 bits
-    Sgn<6> t1 = sgn_mul3(sgn_add<3>(ao, sgn_negate(ae)), sgn_add<3>(bo, sgn_negate(be)));
-    acc_signed(p1, n1, t1, e);
+    acc_mul_add(a1, sgn_mul3(sgn_add<3>(ao, sgn_negate(ae)), sgn_add<3>(bo, sgn_negate(be))),
+                e);
   }
-  Fe s0 = fe_sub(redc_wide(p0, F), redc_wide(n0, F), F);
-  Fe s1 = fe_sub(redc_wide(p1, F), redc_wide(n1, F), F);
-  store_pair_partials(s0, s1, partial, F);
+  Fe s[2] = {redc_signed(a0, F), redc_signed(a1, F)};
+  store_block_sums<2, NT>(q, s, partial, F);
+  finish_weighted_sums<2, NT>(partial, w, out, ticket, F);
 }
 
 // ---------------------------------------------------------------------------
 // entries
 // ---------------------------------------------------------------------------
 
-static unsigned blocks_for(size_t n, unsigned cap) {
-  size_t b = (n + NT - 1) / NT;
+static unsigned blocks_for(size_t n, unsigned nt, unsigned cap) {
+  size_t b = (n + nt - 1) / nt;
   if (b < 1) b = 1;
   return (unsigned)(b < cap ? b : cap);
 }
 
+// Blocks a pair of a round over `pairs` pairs of n columns (mirrored by
+// sumcheck/nifs.py _nifs_blocks).
+static unsigned nifs_blocks(int pairs, size_t n) {
+  size_t cap = 1;
+  while (cap * 2 * (size_t)pairs <= (size_t)NIFS_MAX_BLOCKS) cap *= 2;
+  return blocks_for(n, NT, (unsigned)cap);
+}
+
 static bool bad_grid(int I) { return I < 2 || (I & (I - 1)) != 0 || I > 65536; }
 
+// [a, a + na) and [b, b + nb) bytes overlap
+static bool overlap(const void* a, size_t na, const void* b, size_t nb) {
+  const char *x = (const char*)a, *y = (const char*)b;
+  return x < y + nb && y < x + na;
+}
+
+// The fold's output grid: present, and apart from every input row.
+static bool bad_fold_out(const Grid3& in, size_t in_bytes, const Grid3& fo,
+                         size_t out_bytes) {
+  for (int i = 0; i < 3; ++i) {
+    if (fo.p[i] == nullptr) return true;
+    for (int j = 0; j < 3; ++j)
+      if (overlap(fo.p[i], out_bytes, in.p[j], in_bytes)) return true;
+  }
+  return false;
+}
+
 extern "C" int sp2_nifs_round(int I, size_t n, int bind_first, const uint32_t* r_words,
-                              void* A, void* B, void* C, const void* E, const void* w,
-                              void* partial, int nchunks, void* out,
+                              const void* A, const void* B, const void* C, void* Ao,
+                              void* Bo, void* Co, const void* E, const void* w,
+                              void* partial, int nblocks, void* out, void* ticket,
                               const uint32_t* field_words, void* stream) {
   Field F = field_from_words(field_words);
   const int cur = bind_first ? I / 2 : I;
-  if (bad_grid(I) || cur < 2 || nchunks < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  uint32_t *a = (uint32_t*)A, *b = (uint32_t*)B, *c = (uint32_t*)C;
-  if (bind_first) {
-    fold_kernel<<<dim3(blocks_for(n, 4096), 3), NT, 0, s>>>(I, n, a, b, c,
-                                                            fe_from_words(r_words), F);
-    int err = (int)cudaGetLastError();
-    if (err) return err;
-  }
+  if (bad_grid(I) || cur < 2 || out == nullptr || ticket == nullptr)
+    return (int)cudaErrorInvalidValue;
   const int pairs = cur / 2;
-  round_evals_kernel<<<dim3((unsigned)nchunks, (unsigned)pairs), NT, 0, s>>>(
-      n, a, b, c, (const uint32_t*)E, (uint32_t*)partial, F);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  reduce_pairs_kernel<<<1, NT, 0, s>>>(pairs, nchunks, (const uint32_t*)partial,
-                                       (const uint32_t*)w, (uint32_t*)out, F);
+  const unsigned nb = nifs_blocks(pairs, n);
+  if (nblocks != (int)nb) return (int)cudaErrorInvalidValue;
+  Grid3 in = {{(uint32_t*)A, (uint32_t*)B, (uint32_t*)C}};
+  Grid3 fo = {{(uint32_t*)Ao, (uint32_t*)Bo, (uint32_t*)Co}};
+  const size_t row = n * 32;
+  if (bind_first && bad_fold_out(in, I * row, fo, cur * row))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(nb, (unsigned)pairs);
+  uint32_t *part = (uint32_t*)partial, *o = (uint32_t*)out;
+  if (bind_first)
+    nifs_round_kernel<true><<<grid, NT, 0, s>>>(n, in, fo, (const uint32_t*)E,
+                                                fe_from_words(r_words), part,
+                                                (const uint32_t*)w, o, (unsigned*)ticket, F);
+  else
+    nifs_round_kernel<false><<<grid, NT, 0, s>>>(n, in, fo, (const uint32_t*)E,
+                                                 fe_zero_host(), part, (const uint32_t*)w, o,
+                                                 (unsigned*)ticket, F);
   return (int)cudaGetLastError();
 }
 
-extern "C" int sp2_nifs_fold(int I, size_t n, const uint32_t* r_words, void* A, void* B,
-                             void* C, const uint32_t* field_words, void* stream) {
+extern "C" int sp2_nifs_fold(int I, size_t n, const uint32_t* r_words, const void* A,
+                             const void* B, const void* C, void* Ao, void* Bo, void* Co,
+                             const uint32_t* field_words, void* stream) {
   Field F = field_from_words(field_words);
-  if (bad_grid(I)) return (int)cudaErrorInvalidValue;
-  fold_kernel<<<dim3(blocks_for(n, 4096), 3), NT, 0, (cudaStream_t)stream>>>(
-      I, n, (uint32_t*)A, (uint32_t*)B, (uint32_t*)C, fe_from_words(r_words), F);
+  Grid3 in = {{(uint32_t*)A, (uint32_t*)B, (uint32_t*)C}};
+  Grid3 fo = {{(uint32_t*)Ao, (uint32_t*)Bo, (uint32_t*)Co}};
+  if (bad_grid(I) || bad_fold_out(in, I * n * 32, fo, (I / 2) * n * 32))
+    return (int)cudaErrorInvalidValue;
+  fold_kernel<<<dim3(blocks_for(n, WF_NT, 4096), 3, (unsigned)(I / 2)), WF_NT, 0,
+                (cudaStream_t)stream>>>(n, in, fo, fe_from_words(r_words), F);
   return (int)cudaGetLastError();
 }
 
-extern "C" int sp2_weighted_fold(int I, size_t n, const void* w, const void* W, void* out,
-                                 const uint32_t* field_words, void* stream) {
+// rows: I host words of 64 bits, the rows' device addresses.
+extern "C" int sp2_weighted_fold(int I, size_t n, const void* w, const uint64_t* rows,
+                                 int accumulate, void* out, const uint32_t* field_words,
+                                 void* stream) {
   Field F = field_from_words(field_words);
-  if (I < 1) return (int)cudaErrorInvalidValue;
-  weighted_fold_kernel<<<blocks_for(n, 4096), NT, 0, (cudaStream_t)stream>>>(
-      I, n, (const uint32_t*)w, (const uint32_t*)W, (uint32_t*)out, F);
+  if (I < 1 || I > WF_MAX_ROWS) return (int)cudaErrorInvalidValue;
+  Rows R;
+  for (int i = 0; i < WF_MAX_ROWS; ++i)
+    R.p[i] = i < I ? (const uint32_t*)rows[i] : nullptr;
+  weighted_fold_kernel<<<blocks_for(n, WF_NT, 4096), WF_NT, 0, (cudaStream_t)stream>>>(
+      I, n, (const uint32_t*)w, R, accumulate, (uint32_t*)out, F);
   return (int)cudaGetLastError();
 }
 
@@ -388,24 +478,23 @@ extern "C" int sp2_nifs_to_small(size_t total, const void* A, const void* B, con
                                  void* out, void* ok, const uint32_t* field_words,
                                  void* stream) {
   Field F = field_from_words(field_words);
-  to_small_kernel<<<dim3(blocks_for(total, 4096), 3), NT, 0, (cudaStream_t)stream>>>(
+  to_small_kernel<<<dim3(blocks_for(total, NT, 4096), 3), NT, 0, (cudaStream_t)stream>>>(
       total, (const uint32_t*)A, (const uint32_t*)B, (const uint32_t*)C,
       (uint32_t*)out, (int*)ok, F);
   return (int)cudaGetLastError();
 }
 
 extern "C" int sp2_nifs_small_round(int I, size_t n, const void* S, const void* E,
-                                    const void* w, void* partial, int nchunks, void* out,
-                                    const uint32_t* field_words, void* stream) {
+                                    const void* w, void* partial, int nblocks, void* out,
+                                    void* ticket, const uint32_t* field_words,
+                                    void* stream) {
   Field F = field_from_words(field_words);
-  if (bad_grid(I) || nchunks < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+  if (bad_grid(I) || out == nullptr || ticket == nullptr) return (int)cudaErrorInvalidValue;
   const int pairs = I / 2;
-  small_round_kernel<<<dim3((unsigned)nchunks, (unsigned)pairs), NT, 0, s>>>(
-      I, n, (const uint32_t*)S, (const uint32_t*)E, (uint32_t*)partial, F);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  reduce_pairs_kernel<<<1, NT, 0, s>>>(pairs, nchunks, (const uint32_t*)partial,
-                                       (const uint32_t*)w, (uint32_t*)out, F);
+  const unsigned nb = nifs_blocks(pairs, n);
+  if (nblocks != (int)nb) return (int)cudaErrorInvalidValue;
+  small_round_kernel<<<dim3(nb, (unsigned)pairs), NT, 0, (cudaStream_t)stream>>>(
+      I, n, (const uint32_t*)S, (const uint32_t*)E, (uint32_t*)partial, (const uint32_t*)w,
+      (uint32_t*)out, (unsigned*)ticket, F);
   return (int)cudaGetLastError();
 }

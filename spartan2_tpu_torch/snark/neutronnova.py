@@ -230,10 +230,9 @@ class NeutronNovaNIFS:
                     cache["small"] = (S_small, ok)
             if ok:
                 small = S_small
-        grid = ABC.clone()  # the rounds fold in place; the cache stays
-        with span("nn_nifs_rounds"):
-            r_bs, (AzF, BzF, CzF) = run_nifs(F, grid[0], grid[1], grid[2], E, rhos,
-                                             round_cb, small)
+        with span("nn_nifs_rounds"):  # the rounds only read the grid: the cache stays
+            r_bs, (AzF, BzF, CzF) = run_nifs(F, ABC[0], ABC[1], ABC[2], E, rhos, round_cb,
+                                             small)
 
         t_out = state["T_cur"] * pow(state["acc_eq"], -1, p) % p
         vc.t_out_step = t_out
@@ -251,11 +250,11 @@ class NeutronNovaNIFS:
         truncate = ck is not None and 0 < eff < S.num_vars and S.num_rest_unpadded == 0
         with span("nn_fold_witnesses"):
             if truncate:
-                W_eff = weighted_fold(torch.stack([W.W[:eff] for W in Ws]), w_dev, F)
+                W_eff = weighted_fold([W.W[:eff] for W in Ws], w_dev, F)
                 W_fold = torch.cat([W_eff, torch.zeros(S.num_vars - eff, 8,
                                                        dtype=torch.int32, device=dev)])
             else:
-                W_fold = weighted_fold(torch.stack([W.W for W in Ws]), w_dev, F)
+                W_fold = weighted_fold([W.W for W in Ws], w_dev, F)
         r_W_folded = pcs.fold_blinds([W.r_W for W in Ws], weights)
         with span("nn_fold_commitments"):
             if truncate:
@@ -542,7 +541,7 @@ class NeutronNovaZkSNARK:
                                          [1, c_eval], dev)
         blind_eval = pcs.fold_blinds([blind_eval_W_step, blind_eval_W_core], [1, c_eval])
         # W_fold + c_eval core_W: kernel 3's weighted fold at I = 2
-        W_comb = weighted_fold(torch.stack([W_fold, core_W.W]),
+        W_comb = weighted_fold([W_fold, core_W.W],
                                to_device([1, c_eval], F, dev, mont=True), F)
         with span("nn_pcs_prove"):
             eval_arg = pcs.prove(pk.ck, pk.vc_ck, transcript, comm, W_comb, blind,

@@ -17,6 +17,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from spartan2_tpu.provider.engines import get_engine as jax_get_engine
 from spartan2_tpu.r1cs.multiround import SplitMultiRoundR1CSShape as JaxMRShape
@@ -113,6 +114,23 @@ def test_nn_proof_bytes_equal_jax(run):
         assert run["prep"].cache["small"][1] is True
     else:
         assert S.num_rest_unpadded > 0
+
+
+def test_prep_cache_unchanged_and_second_proof_identical(run):
+    """The NIFS rounds only read the prep cache's grid (each fold writes a
+    buffer of its own): a second prove with the first one's blinds leaves
+    the cache bit-identical and gives the same bytes."""
+    cache = run["prep"].cache
+    assert "ABC" in cache  # filled by the fixture's prove
+    before = {"ABC": cache["ABC"].clone(), "small": cache["small"][0].clone()}
+    proof, prep = NeutronNovaZkSNARK.prove(run["pk"], run["steps"], run["core"],
+                                           run["prep"], rng=det(run["golden"]["prove_seed"]))
+    assert prep.cache is cache
+    assert torch.equal(cache["ABC"], before["ABC"])
+    assert torch.equal(cache["small"][0], before["small"])
+    engine = run["engine"]
+    assert neutronnova_proof_to_bytes(proof, engine) == neutronnova_proof_to_bytes(
+        run["proof"], engine) == run["golden"]["proof"]
 
 
 def test_jax_verifier_accepts_port_nn_proof(run, monkeypatch):

@@ -134,11 +134,11 @@ def _host_sums(A, B, C, E, w):
     return e0, quad
 
 
-@pytest.mark.parametrize("I", [2, 4, 8])
+@pytest.mark.parametrize("I", [2, 4, 8, 16])
 @pytest.mark.parametrize("bind_first", [False, True])
 def test_nifs_round_matches_jax_host_loop(I, bind_first):
     """A round over I instances; with bind_first the grid holds 2I
-    instances that the round first folds into I."""
+    instances that the round first folds into I, in a buffer of its own."""
     n = 16
     G = 2 * I if bind_first else I
     A, B, C = ([rand_ints(P, n, 100 * j + i) for i in range(G)] for j in range(1, 4))
@@ -152,10 +152,24 @@ def test_nifs_round_matches_jax_host_loop(I, bind_first):
     w = [jax_suffix_weight(JF, t, ell_b, q, rhos) for q in range(pairs)]
     assert w == [suffix_weight(F, t, ell_b, q, rhos) for q in range(pairs)]
     gA, gB, gC = _grid(A), _grid(B), _grid(C)
-    got = nifs_round(gA, gB, gC, _up(E), _up(w), r, bind_first, F)
+    out = torch.empty(3, I, n, 8, dtype=torch.int32) if bind_first else None
+    got = nifs_round(gA, gB, gC, _up(E), _up(w), r, bind_first, F, out)
     assert tuple(got) == _host_sums(hA, hB, hC, E, w)
-    if bind_first:  # the fold landed in place in rows [0, I)
-        assert [_ints(gA[i]) for i in range(I)] == hA
+    if bind_first:  # the fold landed in the output buffer
+        assert [[_ints(x[i]) for i in range(I)] for x in out] == [hA, hB, hC]
+    # the input grid is only read
+    assert [[_ints(x[i]) for i in range(G)] for x in (gA, gB, gC)] == [A, B, C]
+
+
+def test_nifs_fold_refuses_in_place_and_missing_output():
+    """A fold's output shares no byte with its input grid."""
+    g = [_grid([rand_ints(P, 4, 40 + 3 * j + i) for i in range(4)]) for j in range(3)]
+    with pytest.raises(ValueError, match="output"):
+        nifs_round(*g, _up([1] * 4), _up([1]), 5, True, F)
+    with pytest.raises(ValueError, match="overlaps"):
+        nifs_round(*g, _up([1] * 4), _up([1]), 5, True, F, [x[:2] for x in g])
+    with pytest.raises(ValueError, match="overlaps"):
+        nifs_fold(*g, 5, F, [g[0][2:], g[1][2:], g[2][2:]])
 
 
 def test_run_nifs_and_folds_match_jax_host():
@@ -189,20 +203,41 @@ def test_run_nifs_and_folds_match_jax_host():
         nifs_update_state(JF, port_state, coeffs, rhos[t], r_b)
         return r_b
 
-    got_r, (Az, Bz, Cz) = run_nifs(F, _grid(A), _grid(B), _grid(C), _up(E), rhos,
-                                   round_cb)
+    grid = [_grid(X) for X in (A, B, C)]
+    got_r, (Az, Bz, Cz) = run_nifs(F, *grid, _up(E), rhos, round_cb)
     assert (got_r, port_polys) == (r_bs, polys)
     assert [_ints(Az), _ints(Bz), _ints(Cz)] == [hA[0], hB[0], hC[0]]
+    # the rounds only read the grid (the prep cache's on the main path)
+    assert [[_ints(x[i]) for i in range(I)] for x in grid] == [A, B, C]
 
     weights = jax_weights_from_r(JF, r_bs, I)
     assert weights_from_r(F, r_bs, I) == weights
     W = [rand_ints(P, 12, 300 + i) for i in range(I)]
     want = [sum(wi * Wi[j] for wi, Wi in zip(weights, W)) % P for j in range(12)]
     assert _ints(weighted_fold(_grid(W), _up(weights), F)) == want
-    # the final fold alone, I = 2 -> 1
+    # the rows as separate tensors, as the prove passes them
+    assert _ints(weighted_fold([_up(x) for x in W], _up(weights), F)) == want
+    # the final fold alone, I = 2 -> 1, into its own buffer
     g = [_grid(X[:2]) for X in (A, B, C)]
-    nifs_fold(*g, r_bs[0], F)
-    assert [_ints(x[0]) for x in g] == [_host_fold(X[:2], r_bs[0])[0] for X in (A, B, C)]
+    out = torch.empty(3, 1, n, 8, dtype=torch.int32)
+    nifs_fold(*g, r_bs[0], F, out)
+    assert [_ints(x[0]) for x in out] == [_host_fold(X[:2], r_bs[0])[0] for X in (A, B, C)]
+    assert [[_ints(x[i]) for i in range(2)] for x in g] == [X[:2] for X in (A, B, C)]
+
+
+def test_run_nifs_one_instance_returns_copies():
+    """With one instance there is no round: run_nifs hands back copies of
+    the grid's rows, which the outer sum-check then binds in place."""
+    n = 8
+    rows = [rand_ints(P, n, 500 + j) for j in range(3)]
+    grid = [_grid([x]) for x in rows]
+    r_bs, folded = run_nifs(F, *grid, _up(rand_ints(P, n, 7)), [], None)
+    assert r_bs == []
+    for x, g, want in zip(folded, grid, rows):
+        assert _ints(x) == want
+        assert x.data_ptr() != g.data_ptr()
+        x.zero_()
+        assert _ints(g[0]) == want
 
 
 # ---------------------------------------------------------------------------

@@ -28,16 +28,11 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from tools._timing import card_line  # noqa: E402
 WORK = ROOT / "build" / "comb_sweep"
 CHAINS = {"witness": (2, 4, 8, 16, 32), "shard": (2, 4, 8, 16, 32),
           "lz_dvec": (3, 6, 12), "h16": (1,)}
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -139,7 +134,6 @@ def main() -> int:
     if args.worker:
         worker(args.worker, args.run)
         return 0
-    sys.path.insert(0, str(ROOT))
     from chip_smoke import _path_kernels
     from spartan2_tpu_torch.utils.cuda import build_all
     from spartan2_tpu_torch.ec.comb import (comb_chain, comb_rows, comb_rows_plain,

@@ -39,6 +39,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+from tools._timing import card_line  # noqa: E402
 WORK = ROOT / "build" / "latency_probe"
 
 PROBE = r"""
@@ -203,13 +204,6 @@ NAMES = ["fe_mul", "fe_mul_cc", "3 x fe_mul", "3 x fe_mul_cc", "pt_dbl",
          "pt_add_k<OpsCC>", "pt_dbl_quad_n<OpsCC>", "fe_add",
          "fe_add_cc"]
 CHAIN = {0: 4000, 1: 4000, 2: 2000, 3: 2000, 11: 4000, 12: 4000}  # the rest: 256
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def nvcc_build(src: Path, lib: Path) -> str:

@@ -25,7 +25,6 @@ from __future__ import annotations
 import argparse
 import inspect
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -33,20 +32,9 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def rand_canonical(n: int, spec, gen: torch.Generator) -> torch.Tensor:
-    """n elements below p (uniform below 2^(bits-1)), (n, 8) int32 on the card."""
-    x = torch.randint(0, 1 << 32, (n, 8), generator=gen, dtype=torch.int64)
-    x[:, 7] &= (1 << (spec.modulus.bit_length() - 1 - 224)) - 1
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32).cuda()
+sys.path.insert(0, str(ROOT))
+from tools._timing import (card_line, device_us, events_ms, host_us,  # noqa: E402
+                           ptxas_lines, rand_canonical)
 
 
 def g_rounds(m: int, eff: int) -> list[dict]:
@@ -65,55 +53,9 @@ def g_rounds(m: int, eff: int) -> list[dict]:
     return out
 
 
-def _events_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _device_us(fn, reps: int, key: str) -> float | None:
-    """The profiler's device microseconds a launch of the kernel named by
-    key (fn launches it once), over the launches the profiler recorded: it
-    sometimes records fewer than were made, or none (None)."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if key in e.key]
-    total, count = sum(e.self_device_time_total for e in evs), sum(e.count for e in evs)
-    return total / count if total > 0 and count else None
-
-
-def _host_us(fn, reps: int) -> float:
-    """The host's microseconds a call of fn, enqueued back to back."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) * 1e6 / reps
-
-
 def _timed(fn, reps: int, key: str) -> dict:
-    return {"ms": _events_ms(fn, reps), "device_us": _device_us(fn, reps, key),
-            "host_us": _host_us(fn, reps)}
-
-
-def ptxas_lines(kernel) -> list[str]:
-    log = kernel.lib_path.parent / f"{kernel.name}.log"
-    return [ln.strip() for ln in log.read_text().splitlines()
-            if "stack frame" in ln or "registers" in ln] if log.exists() else []
+    return {"ms": events_ms(fn, reps), "device_us": device_us(fn, reps, key),
+            "host_us": host_us(fn, reps)}
 
 
 def time_g_rounds(spec, m: int = 20, eff: int = 528177, reps: int = 20,

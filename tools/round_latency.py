@@ -27,9 +27,9 @@ permutations in sequence.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import random
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -37,6 +37,8 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from tools._timing import card_line, device_us, ptxas_lines  # noqa: E402
 WORK = ROOT / "build" / "latency_probe"
 
 PROBE = r"""
@@ -220,13 +222,6 @@ def f_latency_floor(probe, spec, mode: str = "gruen") -> dict:
             "permutation_us": perm_us}
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
 def f_cases(spec, dev):
     """Kernel F's inputs per mode: (name, mode, sums rows, ctx, consts,
     zero_check, fallback)."""
@@ -290,17 +285,10 @@ def time_f(spec, reps: int = 200) -> list:
         end.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / reps
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for i in range(reps):
-                run(i)
-            torch.cuda.synchronize()
-        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                     if "round_finish" in e.key) / reps
+        calls = itertools.cycle(range(reps + 1))
+        dev_us = device_us(lambda: run(next(calls)), reps, "round_finish")
         out.append({"f_mode": name, "rows": rows, "ms": ms, "device_us": dev_us})
-    log = ROUND_FINISH.lib_path.parent / "round_finish.log"
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "stack frame" in ln or "registers" in ln] if log.exists() else []
-    out.append({"round_finish_ptxas": ptxas})
+    out.append({"round_finish_ptxas": ptxas_lines(ROUND_FINISH)})
     return out
 
 
