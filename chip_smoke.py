@@ -82,7 +82,13 @@
    timed region), and computes each kernel's bound from the bytes, the
    32-bit multiply-adds and the Keccak logic operations this run's data
    needs.  The comb, MSM and Hyrax-bind kernels are also held against
-   their plain versions on the Pallas curve (a = 0).  The eq table at
+   their plain versions on the Pallas curve (a = 0).  The comb table
+   build at the three tables a width-2048 key builds (43 windows x 2048,
+   11 x 2048 against the 43-window plain table's first 11 windows, 43 x 1
+   for h on the host), on P-256 and Pallas, each with its device time.
+   Kernel B's sums (at num_cols 524545, and with one extra column, every
+   column extra and K = 2 over edge values) and its bind, each timed
+   alone, the sums also with a cold L2.  The eq table at
    2^20 and the outer plan's 20 tables in one sp2_eq_tables launch, timed
    by CUDA events and by the profiler's device time.  Kernels C and 5 at
    the paths' shapes (R x I = 43 x 2, 15 x 16, and 256 points) on P-256
@@ -201,10 +207,13 @@ def device_ms(fn, reps: int) -> float | None:
     calls, after a dropped warm-up step (``tools/_timing.py``): the
     kernels' own time, without the host's enqueue (a launch of a few
     microseconds' work is paced by its Python wrapper under CUDA events).
-    None where it recorded no launch.  fn runs reps + 2 times."""
+    A profile that recorded no launch is taken once more; None where the
+    second recorded none either.  fn runs reps + 2 times a profile."""
     from tools._timing import call_us, kernel_us
 
     us = call_us(kernel_us(fn, reps), reps)
+    if us is None:
+        us = call_us(kernel_us(fn, reps), reps)
     return None if us is None else us / 1e3
 
 
@@ -344,6 +353,52 @@ def comb_bound_args(scalars: torch.Tensor, n_win: int) -> tuple:
     nz = (scalar_digits(scalars, n_win) != 0).sum((0, 2))
     adds = int((nz - 1).clamp(min=0).sum())
     return R * C * 32 + int(nz.sum()) * 96 + R * 96, adds * MONT_MULS_PER_ADD
+
+
+def comb_build_bound(C: int, n_win: int, curve) -> tuple:
+    """(bytes, products) a comb table build needs: the generators read and
+    the table written once; 6 doublings from one window's base to the next,
+    chained, and 62 additions a window and generator."""
+    return (2 * C * 32 + n_win * 64 * C * 96,
+            C * (6 * (n_win - 1) * dbl_muls(curve) + n_win * 62 * MONT_MULS_PER_ADD))
+
+
+def check_comb_build(curve, gens, h, n_small: int, dev, F, prefix: str = ""):
+    """The three tables a Hyrax key builds at first use (pcs/hyrax.py: full
+    scalars over the C generators, the witness's small scalars over them,
+    full scalars over h), each against its plain version limb for limb:
+    the small table against the first windows of the full plain table (a
+    window does not depend on the windows after it,
+    tests/test_torch_comb_build_layout.py), h's table against its plain
+    version on the host.  -> the three tables' records (full, small, h),
+    each with its device ms."""
+    from spartan2_tpu_torch.ec.comb import comb_build, comb_build_plain, n_windows
+    from spartan2_tpu_torch.field.limbs import to_device
+    from spartan2_tpu_torch.pcs.hyrax import FULL_BITS
+
+    Fb, C, nw = curve.base, len(gens), n_windows(FULL_BITS)
+    gx = to_device([g[0] for g in gens], Fb, dev, mont=True)
+    gy = to_device([g[1] for g in gens], Fb, dev, mont=True)
+    hx, hy = to_device([h[0]], Fb, dev, mont=True), to_device([h[1]], Fb, dev, mont=True)
+    want, pms = once_ms(lambda: comb_build_plain(gx, gy, nw, curve))
+    same_or_raise(f"{prefix}comb_build {nw} windows x {C}", comb_build(gx, gy, nw, curve),
+                  want, F)
+    same_or_raise(f"{prefix}comb_build {n_small} windows x {C} (the plain table's first "
+                  f"{n_small} windows)", comb_build(gx, gy, n_small, curve), want[:n_small], F)
+    want_h, hpms = host_plain(lambda x, y: comb_build_plain(x, y, nw, curve), hx, hy)
+    same_or_raise(f"{prefix}comb_build {nw} windows x 1 (h)", comb_build(hx, hy, nw, curve).cpu(),
+                  want_h, F)
+    del want
+    recs = []
+    for n_win, x, y, pm in ((nw, gx, gy, pms), (n_small, gx, gy, None), (nw, hx, hy, hpms)):
+        def call(x=x, y=y, n_win=n_win):
+            comb_build(x, y, n_win, curve)
+
+        rec = detail_record(f"{prefix}comb_build {n_win} x {x.shape[0]}", cuda_ms(call, 3), pm,
+                            *comb_build_bound(x.shape[0], n_win, curve))
+        rec["device_ms"] = device_ms(call, 3)
+        recs.append(rec)
+    return recs
 
 
 def gathered(mats) -> int:
@@ -534,9 +589,7 @@ def hyrax_bind_bound(R: int, C: int) -> tuple:
 def compare_kernels(pk, prep, proof, launches: dict):
     """Each kernel against its plain version at the main path's shapes;
     -> (kernel records for the JSON line, detail records)."""
-    from spartan2_tpu_torch.ec.comb import (
-        comb_build, comb_build_plain, comb_rows, comb_rows_plain, n_windows,
-        scalar_digits)
+    from spartan2_tpu_torch.ec.comb import comb_rows, comb_rows_plain, n_windows, scalar_digits
     from spartan2_tpu_torch.ec.msm import msm, msm_plain, msm_windows, to_jacobian
     from spartan2_tpu_torch.field.limbs import to_device
     from spartan2_tpu_torch.pcs.hyrax import (
@@ -550,7 +603,7 @@ def compare_kernels(pk, prep, proof, launches: dict):
 
     engine, S = pk.engine, pk.S
     curve = engine.curve
-    F, Fb = engine.scalar, curve.base
+    F = engine.scalar
     dev = pk.device
     gen = torch.Generator().manual_seed(0)
     rr = random.Random(5).randrange(F.modulus)
@@ -690,21 +743,18 @@ def compare_kernels(pk, prep, proof, launches: dict):
                     lambda: comb_rows_plain(sc1, tab, curve))
         record_detail(name, cuda_ms(lambda: comb_rows(sc1, tab, curve), 10), pms,
                       *comb_bound_args(sc1, tab.shape[0]))
-    gx = to_device([g[0] for g in pk.ck.ck], Fb, dev, mont=True)
-    gy = to_device([g[1] for g in pk.ck.ck], Fb, dev, mont=True)
-    nwf = n_windows(FULL_BITS)
-    pms = check("comb_build", comb_build(gx, gy, nwf, curve),
-                lambda: comb_build_plain(gx, gy, nwf, curve))
-    # the function needs 6 doublings from one window's base to the next,
-    # chained, and 62 additions per window (the kernel recomputes each
-    # window's base from G_j: 6 w doublings in thread w)
-    record_detail(f"comb_build {nwf} windows x {C}",
-                  cuda_ms(lambda: comb_build(gx, gy, nwf, curve), 2), pms,
-                  2 * C * 32 + nwf * 64 * C * 96,
-                  C * (6 * (nwf - 1) * dbl_muls(curve)
-                       + nwf * 62 * MONT_MULS_PER_ADD))
     rows_pre = S.num_precommitted // S.width
     small = pk.ck.comb(SMALL_BITS)
+    full, *rest = check_comb_build(curve, pk.ck.ck, pk.ck.h, small.n_win, dev, F)
+    out.append(kernel_record(
+        "comb_build", "spartan2_tpu/ec/comb.py:71", launches["comb_entries"]["sp2_comb_build"],
+        "sp2_comb_build entry calls on the SpartanSNARK path: setup, prep_prove, three "
+        "proves, verify (the key's three tables at first use, two launches each: the bases "
+        f"and the digits); ms, device_ms and the bound at {full['name'].split(' ', 1)[1]}",
+        full["ms"], full["plain_ms"], *comb_build_bound(C, n_windows(FULL_BITS), curve),
+        source="spartan2_tpu_torch/csrc/comb.cu"))
+    out[-1]["device_ms"] = full["device_ms"]
+    detail.extend(rest)
     wit = prep.ps.W[S.num_shared : S.num_shared + S.num_precommitted]
     scp = to_device(wit, F, dev).reshape(rows_pre, C, 8)
     pms = check("comb_rows precommitted witness", comb_rows(scp, small.table, curve),
@@ -744,16 +794,17 @@ def compare_kernels(pk, prep, proof, launches: dict):
 ZK_PATH = "on the SpartanZkSNARK path: setup_from_shape, prep_prove, four proves, verify"
 
 
-def compare_zk_kernels(S, zk_proof, proof, zk_launches: dict):
+def compare_zk_kernels(S, zk_proof, proof, zk_launches: dict, launches: dict,
+                       nn_launches: dict):
     """Kernels A, B and C and the whole-z SpMV against their plain
-    versions at the ZK path's shapes -> (kernel records, detail records)."""
+    versions at the ZK path's shapes -> (kernel records, detail records);
+    kernel B's records also count its launches on the other two paths."""
     from spartan2_tpu_torch.ec.msm import msm_rows, msm_rows_plain, msm_windows, to_jacobian
     from spartan2_tpu_torch.field.limbs import to_device
     from spartan2_tpu_torch.pcs.hyrax import FULL_BITS
     from spartan2_tpu_torch.r1cs.sparse import spmv, spmv_plain
     from spartan2_tpu_torch.sumcheck.device import (
-        CUBIC, QUAD, bind, bind_plain, inner0_bind, inner0_bind_plain, inner0_evals,
-        inner0_evals_plain, round_evals_batched, round_evals_batched_plain)
+        CUBIC, QUAD, bind, bind_plain, round_evals_batched, round_evals_batched_plain)
     from spartan2_tpu_torch.provider.engines import get_engine
 
     engine = get_engine("P256HyraxEngine")
@@ -768,10 +819,6 @@ def compare_zk_kernels(S, zk_proof, proof, zk_launches: dict):
         want, ms = once_ms(plain)
         same_or_raise(name, got, want, F)
         return ms
-
-    def pairs(evals):
-        p = F.modulus
-        return [(e0, (e0 - low + cross) % p) for e0, low, cross in evals]
 
     # kernel A at 2^20: the round as it is (the first of a sum-check) and the
     # bind of E and K instances of A, B, C, then the round with the bind
@@ -838,53 +885,9 @@ def compare_zk_kernels(S, zk_proof, proof, zk_launches: dict):
         2 * nq * 32, nq))
     detail[-1]["device_ms"] = sums_device_ms(QUAD, nq, az, F)
 
-    # kernel B: the structured inner round 0 at num_cols (evals + bind)
-    nv, ne = S.num_vars, S.num_cols - S.num_vars
-    abc, z = (rand_field(S.num_cols, F, gen, dev)[None] for _ in range(2))
-    plain_ms(f"inner0 evals num_cols={S.num_cols}", inner0_evals(abc, z, nv, ne, F),
-             lambda: pairs(_pull_ints(inner0_evals_plain(abc, z, nv, ne, F), F, 1)))
-    a1, z1, a2, z2 = abc.clone(), z.clone(), abc.clone(), z.clone()
-    inner0_bind(a1, z1, rr, nv, ne, F)
-    plain_ms("inner0 bind", torch.cat([a1, z1]),
-             lambda: (inner0_bind_plain(a2, z2, rr, nv, ne, F), torch.cat([a2, z2]))[1])
-    copies = iter([(abc.clone(), z.clone()) for _ in range(reps + 2)])
-
-    def round0(ev, bd):
-        def run():
-            res = ev(abc, z, nv, ne, F)
-            bd(*next(copies), rr, nv, ne, F)
-            return res
-        return run
-
-    _, pms = once_ms(round0(inner0_evals_plain, inner0_bind_plain))
-    ms = cuda_ms(round0(inner0_evals, inner0_bind), reps)
-    del copies
-    # what kernel B replaced on the non-ZK path: a quad round over abc and
-    # z zero-padded to 2 num_vars (the padding itself not timed)
-    padded = []
-    for _ in range(reps + 2):
-        a_pad, z_pad = (torch.zeros(2 * nv, 8, dtype=torch.int32, device=dev)
-                        for _ in range(2))
-        a_pad[: S.num_cols], z_pad[: S.num_cols] = abc[0], z[0]
-        padded.append([a_pad, z_pad])
-    pit = iter(padded)
-
-    def padded_round():
-        v = next(pit)
-        res = round_evals_batched(QUAD, 2 * nv, v, F)
-        bind(v, 2 * nv, rr, F)
-        return res
-
-    detail.append(detail_record(
-        "padded quad round 0 at 2^20 (evals + bind; replaced by kernel B)",
-        cuda_ms(padded_round, reps), None, 4 * nv * 32 + 2 * nv * 32, 2 * nv + 2 * nv))
-    del padded, pit
-    out.append(kernel_record(
-        "inner0", "spartan2_tpu/sumcheck/zk_device.py:284",
-        sc_calls.get("sp2_inner0_evals", 0) + sc_calls.get("sp2_inner0_bind", 0),
-        f"sp2_inner0_evals and sp2_inner0_bind entry calls {ZK_PATH}",
-        ms, pms, 2 * S.num_cols * 32 + 2 * nv * 32, nv + 2 * ne + 2 * nv,
-        "spartan2_tpu_torch/csrc/sumcheck.cu"))
+    b_out, b_detail = check_kernel_b(S, F, dev, sc_calls, launches, nn_launches, reps)
+    out.extend(b_out)
+    detail.extend(b_detail)
 
     # kernel C: the NIFS verifier's fold of the verifier-circuit W rows
     # (43 rows of 2 points) with this run's proof points and weights
@@ -931,6 +934,117 @@ def compare_zk_kernels(S, zk_proof, proof, zk_launches: dict):
     return out, detail
 
 
+def check_kernel_b(S, F, dev, sc_calls: dict, launches: dict, nn_launches: dict,
+                   reps: int):
+    """Kernel B's sums and bind at the inner round 0 of S against their plain
+    versions, the sums also at the edges -> (kernel records, detail records)."""
+    from spartan2_tpu_torch.sumcheck.device import (
+        QUAD, bind, inner0_bind, inner0_bind_plain, inner0_evals, inner0_evals_plain,
+        inner0_sums, new_ticket, round_evals_batched)
+    from tools._timing import kernel_us
+
+    gen = torch.Generator().manual_seed(11)
+    rr = random.Random(19).randrange(F.modulus)
+    out, detail = [], []
+
+    def plain_ms(name, got, plain):
+        want, ms = once_ms(plain)
+        same_or_raise(name, got, want, F)
+        return ms
+
+    def pairs(evals):
+        p = F.modulus
+        return [(e0, (e0 - low + cross) % p) for e0, low, cross in evals]
+
+    # kernel B: the structured inner round 0 at num_cols, its sums and its
+    # bind each against its plain version and timed alone
+    nv, ne = S.num_vars, S.num_cols - S.num_vars
+    abc, z = (rand_field(S.num_cols, F, gen, dev)[None] for _ in range(2))
+    ev_pms = plain_ms(f"inner0 evals num_cols={S.num_cols}", inner0_evals(abc, z, nv, ne, F),
+                      lambda: pairs(_pull_ints(inner0_evals_plain(abc, z, nv, ne, F), F, 1)))
+    # the edges: one extra column, every column extra (no main block), and
+    # K = 2, over edge values (zeros, 1 and p - 1 among the entries)
+    for nv_e, ne_e, K in ((1 << 12, 1, 1), (1 << 12, 1 << 12, 1), (1 << 12, 300, 2)):
+        ae, ze = (edge_field(K * (nv_e + ne_e), F, gen, dev).reshape(K, nv_e + ne_e, 8)
+                  for _ in range(2))
+        plain_ms(f"inner0 evals num_vars={nv_e}, num_extra={ne_e}, K={K}, edge values",
+                 inner0_evals(ae, ze, nv_e, ne_e, F),
+                 lambda: pairs(_pull_ints(inner0_evals_plain(ae, ze, nv_e, ne_e, F), F, K)))
+    a1, z1, a2, z2 = abc.clone(), z.clone(), abc.clone(), z.clone()
+    inner0_bind(a1, z1, rr, nv, ne, F)
+    bd_pms = plain_ms("inner0 bind", torch.cat([a1, z1]),
+                      lambda: (inner0_bind_plain(a2, z2, rr, nv, ne, F), torch.cat([a2, z2]))[1])
+    del a2, z2
+    ticket = new_ticket(dev)
+
+    def sums():
+        inner0_sums(abc[0], z[0], nv, ne, F, ticket)
+
+    flush = torch.empty(32 << 20, dtype=torch.int32, device=dev)  # 128 MB, above the L2
+
+    def cold_sums():
+        flush.fill_(1)
+        sums()
+
+    cold = None
+    for _ in range(2):  # a profile recorded no launch at times: once more
+        ks = [k for name, k in kernel_us(cold_sums, 10).items() if "inner0_evals" in name]
+        if ks:
+            cold = ks[0]["us"] / 1e3
+            break
+    del flush
+    sc_nn = nn_launches["sumcheck"]
+    sc_main = launches["sumcheck_entries"]
+    out.append(kernel_record(
+        "inner0_evals", "spartan2_tpu/sumcheck/zk_device.py:284",
+        sc_calls.get("sp2_inner0_evals", 0),
+        f"sp2_inner0_evals entry calls {ZK_PATH}; launches_by_path: the same on each path",
+        cuda_ms(lambda: inner0_evals(abc, z, nv, ne, F, ticket), reps), ev_pms,
+        2 * S.num_cols * 32 + 3 * 32, (nv + ne) / 2,  # unreduced products: half a product
+        "spartan2_tpu_torch/csrc/sumcheck.cu"))
+    out[-1]["launches_by_path"] = {
+        "SpartanSNARK": sc_main.get("sp2_inner0_evals", 0),
+        "SpartanZkSNARK": sc_calls.get("sp2_inner0_evals", 0),
+        "NeutronNovaZkSNARK": sc_nn.get("sp2_inner0_evals", 0)}
+    out[-1]["device_ms"] = device_ms(sums, 10)
+    out[-1]["device_ms_cold_l2"] = cold
+    out.append(kernel_record(
+        "inner0_bind", "spartan2_tpu/sumcheck/zk_device.py:308",
+        sc_calls.get("sp2_inner0_bind", 0),
+        f"sp2_inner0_bind entry calls {ZK_PATH}; launches_by_path: sp2_inner0_bind on the ZK "
+        "and NN paths, sp2_inner0_bind_dev on the SpartanSNARK path (also the peeled outer "
+        "round 0's bind)",
+        cuda_ms(lambda: inner0_bind(a1, z1, rr, nv, ne, F), reps), bd_pms,
+        2 * S.num_cols * 32 + 2 * nv * 32, 2 * nv, "spartan2_tpu_torch/csrc/sumcheck.cu"))
+    out[-1]["launches_by_path"] = {
+        "SpartanSNARK": sc_main.get("sp2_inner0_bind_dev", 0),
+        "SpartanZkSNARK": sc_calls.get("sp2_inner0_bind", 0),
+        "NeutronNovaZkSNARK": sc_nn.get("sp2_inner0_bind", 0)}
+    out[-1]["device_ms"] = device_ms(lambda: inner0_bind(a1, z1, rr, nv, ne, F), 10)
+    del a1, z1
+    # what kernel B replaced on the non-ZK path: a quad round over abc and
+    # z zero-padded to 2 num_vars (the padding itself not timed)
+    padded = []
+    for _ in range(reps + 2):
+        a_pad, z_pad = (torch.zeros(2 * nv, 8, dtype=torch.int32, device=dev)
+                        for _ in range(2))
+        a_pad[: S.num_cols], z_pad[: S.num_cols] = abc[0], z[0]
+        padded.append([a_pad, z_pad])
+    pit = iter(padded)
+
+    def padded_round():
+        v = next(pit)
+        res = round_evals_batched(QUAD, 2 * nv, v, F)
+        bind(v, 2 * nv, rr, F)
+        return res
+
+    detail.append(detail_record(
+        "padded quad round 0 at 2^20 (evals + bind; replaced by kernel B)",
+        cuda_ms(padded_round, reps), None, 4 * nv * 32 + 2 * nv * 32, 2 * nv + 2 * nv))
+    del padded, pit
+    return out, detail
+
+
 def _pull_ints(t: torch.Tensor, F, K: int) -> list:
     """(K, k, 8) Montgomery sums -> K lists of canonical ints."""
     from spartan2_tpu_torch.field.limbs import limbs_to_ints
@@ -962,8 +1076,8 @@ def kernel_group(name: str) -> str | None:
     """The redesigned kernels' group of a profiler event, if any."""
     if name.startswith("spmv_"):
         return "spmv"
-    if name.startswith("comb_") and not name.startswith("comb_build"):
-        return "comb"
+    if name.startswith(("comb_points_kernel", "comb_rowsum_kernel")):
+        return "comb"  # the rows; the table build (comb_bases, comb_digits) is setup's
     if name.startswith("msm_rows_kernel"):
         return "msm"  # kernels C and 5
     if name.startswith("eq_tables_kernel"):
@@ -1155,6 +1269,9 @@ def run_spartan(engine, circuit, dev, kernels):
           f"{json.dumps(launches)}; by entry: "
           f"{json.dumps({k.name: k.entry_launches for k in kernels})}", flush=True)
     launches["sumcheck_entries"] = dict(sumcheck.entry_launches)
+    launches["comb_entries"] = dict(next(k for k in kernels if k.name == "comb").entry_launches)
+    if launches["comb_entries"].get("sp2_comb_build", 0) <= 0:
+        raise RuntimeError("comb_build was not launched on the SpartanSNARK path")
     return pk, prep, proof, launches, first_blob
 
 
@@ -2323,25 +2440,33 @@ def check_pallas(dev) -> list:
     2^255) against their plain versions on the card: comb build and rows,
     the MSM of kernel 5 and the Hyrax row bind over Pallas's scalar field
     -> detail records."""
-    from spartan2_tpu_torch.ec.comb import (comb_build, comb_build_plain, comb_rows,
-                                            comb_rows_plain, n_windows, to_affine)
+    from spartan2_tpu_torch.ec.comb import comb_build, comb_rows, comb_rows_plain, n_windows, to_affine
     from spartan2_tpu_torch.ec.msm import msm, msm_plain, msm_windows, to_jacobian
     from spartan2_tpu_torch.field.limbs import to_device
-    from spartan2_tpu_torch.pcs.hyrax import FULL_BITS, hyrax_bind, hyrax_bind_plain
+    from spartan2_tpu_torch.pcs.hyrax import FULL_BITS, SMALL_BITS, hyrax_bind, hyrax_bind_plain
     from spartan2_tpu_torch.provider.engines import get_engine
 
     engine = get_engine("PallasHyraxEngine")
     curve, F = engine.curve, engine.scalar
+    # comb_build's three tables at the main path's width, each against its
+    # plain version (check_comb_build)
+    W = MAIN_CFG["width"]
+    ck, _ = engine.pcs.setup(b"ck", 2 * W, W, dev)
+    detail = check_comb_build(curve, ck.ck, ck.h, n_windows(SMALL_BITS), dev, F, "Pallas ")
+    # the comb rows, the MSM and the bind at 64 columns: the table of the
+    # first 64 generators, the first 64 columns of the table just held
+    # against its plain version (columns are independent)
     C = 64
-    ck, _ = engine.pcs.setup(b"ck", 16 * C, C, dev)
     gen = torch.Generator().manual_seed(17)
-    detail = []
-    gx = to_device([g[0] for g in ck.ck], curve.base, dev, mont=True)
-    gy = to_device([g[1] for g in ck.ck], curve.base, dev, mont=True)
+    gx = to_device([g[0] for g in ck.ck[:C]], curve.base, dev, mont=True)
+    gy = to_device([g[1] for g in ck.ck[:C]], curve.base, dev, mont=True)
     nw = n_windows(FULL_BITS)
     table = comb_build(gx, gy, nw, curve)
-    want, pms = once_ms(lambda: comb_build_plain(gx, gy, nw, curve))
-    same_or_raise(f"comb_build on Pallas ({nw} windows x {C})", table, want, F)
+    fx = to_device([g[0] for g in ck.ck], curve.base, dev, mont=True)
+    fy = to_device([g[1] for g in ck.ck], curve.base, dev, mont=True)
+    same_or_raise(f"comb_build on Pallas ({nw} windows x {C}) against the first {C} columns of "
+                  f"the {W}-column table", table, comb_build(fx, fy, nw, curve)[:, :, :C], F)
+    del fx, fy
     sc = rand_field(16 * C, F, gen, dev).reshape(16, C, 8)
     want, rms = once_ms(lambda: comb_rows_plain(sc, table, curve))
     same_or_raise("comb_rows on Pallas (16 x 64, full width)",
@@ -2355,13 +2480,9 @@ def check_pallas(dev) -> list:
     want, hms = once_ms(lambda: hyrax_bind_plain(L, poly, F))
     same_or_raise("hyrax_bind over Pallas's scalar field (256 x 64)",
                   hyrax_bind(L, poly, F), want, F)
-    # bounds as the P-256 rows count them: comb_build's doublings and
-    # additions, the comb rows' additions of nonzero digits, the MSM's
-    # products, the bind's products
+    # bounds as the P-256 rows count them: the comb rows' additions of
+    # nonzero digits, the MSM's products, the bind's products
     for name, fn, pm, (nbytes, muls) in (
-            ("Pallas comb_build 43 x 64", lambda: comb_build(gx, gy, nw, curve), pms,
-             (2 * C * 32 + nw * 64 * C * 96,
-              C * (6 * (nw - 1) * dbl_muls(curve) + nw * 62 * MONT_MULS_PER_ADD))),
             ("Pallas comb_rows 16 x 64", lambda: comb_rows(sc, table, curve), rms,
              comb_bound_args(sc, nw)),
             ("Pallas msm 16 points", lambda: msm(ms_sc, pts, curve), mms,
@@ -3197,7 +3318,8 @@ def main() -> int:
     g_detail = check_graphs(pk, prep, circuit)
     g_detail += check_g_and_bind(dev)
     out, detail = compare_kernels(pk, prep, proof, launches)
-    zk_out, zk_detail = compare_zk_kernels(pk.S, zk_proof, proof, zk_launches)
+    zk_out, zk_detail = compare_zk_kernels(pk.S, zk_proof, proof, zk_launches, launches,
+                                           nn_launches)
     nn_out, nn_detail = compare_nn_kernels(nn_pk, nn_prep, nn_proof, nn_launches)
     p_detail = check_pallas(dev)
     msm_detail, floors = check_msm(dev, probe)

@@ -3,13 +3,25 @@
 //
 // Replaces the JAX package's comb programs (spartan2_tpu/ec/comb.py:
 // FixedBaseComb._build :71 "comb_build", _rows_kernel :123 "comb_rows").
-// The group law (complete Jacobian additions) is curve.cuh; the faster
-// incomplete adds are a later optimisation.
+// The group law (complete Jacobian additions) is curve.cuh; the build runs
+// it on the carry-chain field ops, the rows on fe_mul.
 //
 // Entries:
-//   sp2_comb_build  one thread per (window w, generator j):
-//                   T[w][d][j] = (d * 2^(6w)) * G_j for d in [0, 64).
-//                   Table layout (n_win, 64, C, 3, 8) int32.
+//   sp2_comb_build  T[w][d][j] = (d * 2^(6w)) * G_j for d in [0, 64), in
+//                   two launches.  Bases: a quad of lanes a generator j
+//                   chains the window bases B_w = 2^(6w) G_j, six doublings
+//                   a window (curve.cuh pt_dbl_quad_n: a doubling's
+//                   independent products one a lane), and writes each at
+//                   T[w][1][j].  Digits: a thread a (w, j), window-major,
+//                   reads B_w there and writes T[w][d][j] = T[w][d-1][j] +
+//                   B_w for d = 2 .. 63 (62 complete additions, every
+//                   thread the same work) and the identity at d = 0.  Both
+//                   on the carry-chain field ops, the doubling specialised
+//                   on a.  The chain is the plain version's (ec/comb.py
+//                   comb_build_plain: six successive doublings a window,
+//                   then T[d-1] + B_w), every value canonical, so the
+//                   limbs are its limbs.  Table layout (n_win, 64, C, 3, 8)
+//                   int32.
 //   sp2_comb_rows   sum_j s[r, j] G_j = sum over the row's N = n_win * C
 //                   points T[w][d_{r,j,w}][j] (the identity where the digit
 //                   is 0), point p = w * C + j.  Pass 1: block b of a row
@@ -37,11 +49,19 @@
 //                   wrapper; output (R, 3, 8).
 //
 // Bound: point additions (about 16 Montgomery products each), not bytes.
-// The sum's additions are as many as a walk over the windows made; their
-// dependency depth falls from n_win + C / 128 + 7 to about k + 7 + 7 (6 at
-// C = 1).  Each addition is a long chain of dependent products (an
-// estimate from event times, not an instruction count: some 30 us on the
-// H100), so depth is what the time is.  k keeps the lanes busy at full
+// The build needs 6 (n_win - 1) doublings a generator, chained, and 62
+// additions a (w, j): at 43 x 2048, 4.1 M products of doublings and 87 M
+// of additions, 1.40 ms at the card's multiply rate; the table's 541 MB
+// take 0.16 ms to write.  The bases' launch is latency: 252 quad doublings
+// in sequence (about 2 us each).  The digits' launch is throughput: 88064
+// equal chains of 62 dependent additions, enough threads to keep the
+// multipliers busy.  A thread's B_w from G_j by 6 w doublings of its own
+// would cost 111 M products more, most of them in the last windows.
+// The rows' sum: its additions are as many as a walk over the windows
+// made; their dependency depth falls from n_win + C / 128 + 7 to about k +
+// 7 + 7 (6 at C = 1).  Each addition is a long chain of dependent products
+// (an estimate from event times, not an instruction count: some 30 us on
+// the H100), so depth is what the time is.  k keeps the lanes busy at full
 // width: with a point per thread most warps wait in the tree.  A tree over
 // windows and columns breaks the argument that lets a lane's chain of
 // windows add incompletely (spartan2_tpu/ec/comb.py:135-140), so every
@@ -54,24 +74,50 @@ using namespace sp2;
 constexpr int WIN = 6;
 constexpr int DIGITS = 1 << WIN;
 
-__global__ void comb_build_kernel(int n_win, int ncols, const uint32_t* gx,
-                                  const uint32_t* gy, uint32_t* table, Curve C) {
-  const size_t t = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
-  if (t >= (size_t)n_win * ncols) return;
-  const int w = (int)(t / ncols);
-  const int j = (int)(t % ncols);
+// The operations of the build: the carry-chain field ops (curve.cuh).
+using BuildOps = OpsCC;
+constexpr int BUILD_NT = 128;
+
+// Point (w, d, j) of the table.
+__device__ __forceinline__ size_t table_index(int w, int d, int j, int ncols) {
+  return ((size_t)w * DIGITS + d) * ncols + j;
+}
+
+// The window bases: quad q = generator j; each lane of the quad holds the
+// same point, and lane c < 3 writes its coordinate c of B_w at T[w][1][j].
+__global__ void __launch_bounds__(BUILD_NT) comb_bases_kernel(int n_win, int ncols,
+                                                              const uint32_t* gx,
+                                                              const uint32_t* gy,
+                                                              uint32_t* table, Curve C) {
+  const size_t q = (blockIdx.x * (size_t)BUILD_NT + threadIdx.x) >> 2;
+  if (q >= (size_t)ncols) return;  // whole quads: ncols quads exactly
+  const int j = (int)q, c = threadIdx.x & 3;
+  const int ak = curve_a_kind(C);
   Pt B;
   B.X = fe_load(gx, j);
   B.Y = fe_load(gy, j);
   B.Z = fe_one(C.F);
-  for (int k = 0; k < WIN * w; ++k) B = pt_dbl(B, C);
-  const size_t base = (size_t)w * DIGITS * ncols + j;  // entry (w, d=0, j)
-  pt_store(table, base, pt_inf(C.F));
+  for (int w = 0; w < n_win; ++w) {
+    if (w) B = pt_dbl_quad_n<BuildOps>(B, WIN, C, ak);
+    if (c < 3)
+      fe_store(table, 3 * table_index(w, 1, j, ncols) + c,
+               fe_sel(c == 0, B.X, fe_sel(c == 1, B.Y, B.Z)));
+  }
+}
+
+// The digits: thread t = w ncols + j adds B_w 62 times in a chain.
+__global__ void __launch_bounds__(BUILD_NT) comb_digits_kernel(int n_win, int ncols,
+                                                               uint32_t* table, Curve C) {
+  const size_t t = blockIdx.x * (size_t)BUILD_NT + threadIdx.x;
+  if (t >= (size_t)n_win * ncols) return;
+  const int w = (int)(t / ncols), j = (int)(t % ncols);
+  const int ak = curve_a_kind(C);
+  const Pt B = pt_load(table, table_index(w, 1, j, ncols));
+  pt_store(table, table_index(w, 0, j, ncols), pt_inf(C.F));
   Pt acc = B;
-  pt_store(table, base + ncols, acc);
   for (int d = 2; d < DIGITS; ++d) {
-    acc = pt_add(acc, B, C);
-    pt_store(table, base + (size_t)d * ncols, acc);
+    acc = pt_add_k<BuildOps>(acc, B, C, ak);
+    pt_store(table, table_index(w, d, j, ncols), acc);
   }
 }
 
@@ -118,10 +164,16 @@ extern "C" int sp2_comb_build(int n_win, int ncols, const void* gx, const void* 
                               void* table, const uint32_t* curve_words,
                               void* stream) {
   Curve C = curve_from_words(curve_words);
-  const size_t n = (size_t)n_win * ncols;
-  const int nt = 128;
-  comb_build_kernel<<<(unsigned)((n + nt - 1) / nt), nt, 0, (cudaStream_t)stream>>>(
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_win <= 0 || ncols <= 0 || (size_t)n_win * ncols > 0x7FFFFFFF)
+    return (int)cudaErrorInvalidValue;
+  const size_t lanes = 4 * (size_t)ncols, n = (size_t)n_win * ncols;
+  comb_bases_kernel<<<(unsigned)((lanes + BUILD_NT - 1) / BUILD_NT), BUILD_NT, 0, s>>>(
       n_win, ncols, (const uint32_t*)gx, (const uint32_t*)gy, (uint32_t*)table, C);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  comb_digits_kernel<<<(unsigned)((n + BUILD_NT - 1) / BUILD_NT), BUILD_NT, 0, s>>>(
+      n_win, ncols, (uint32_t*)table, C);
   return (int)cudaGetLastError();
 }
 

@@ -202,6 +202,14 @@ __device__ Pt pt_add_mixed(const Pt& P, const Fe& qx, const Fe& qy, const Curve&
   return R;
 }
 
+// s ? a : b, word by word.
+__device__ __forceinline__ Fe fe_sel(bool s, const Fe& a, const Fe& b) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.v[i] = s ? a.v[i] : b.v[i];
+  return r;
+}
+
 __device__ __forceinline__ Fe fe_shfl_quad(const Fe& a, int src, unsigned mask) {
   Fe r;
 #pragma unroll
@@ -234,15 +242,18 @@ __device__ __forceinline__ Pt pt_dbl_quad_n(Pt P, int k, const Curve& C, int ak)
   Fe ZZ = m3 ? Ops::mul(P.Z, P.Z, F) : fe_zero();
   for (int i = 0; i < k; ++i) {
     if (fe_is_zero(P.Z) || fe_is_zero(P.Y)) return pt_inf(F);
-    // one product a lane, its operands selected (no branch in the quad)
-    const Fe xm = m3 ? Ops::sub(P.X, ZZ, F) : P.X;
-    const Fe xp = m3 ? Ops::add(P.X, ZZ, F) : P.X;
-    const Fe w1 = Ops::mul(c == 2 ? xm : P.Y, c == 2 ? xp : c == 1 ? P.Z : P.Y, F);
+    // one product a lane, its operands selected word by word (no branch
+    // in the quad, nothing addressed)
+    const Fe xm = fe_sel(m3, Ops::sub(P.X, ZZ, F), P.X);
+    const Fe xp = fe_sel(m3, Ops::add(P.X, ZZ, F), P.X);
+    const Fe w1 = Ops::mul(fe_sel(c == 2, xm, P.Y),
+                           fe_sel(c == 2, xp, fe_sel(c == 1, P.Z, P.Y)), F);
     const Fe YY = fe_shfl_quad(w1, 0, mask);
     const Fe YZ = fe_shfl_quad(w1, 1, mask);
     const Fe d = fe_shfl_quad(w1, 2, mask);
     const Fe M = Ops::add(Ops::dbl(d, F), d, F);
-    const Fe w2 = Ops::mul(c == 0 ? M : c == 1 ? P.X : YY, c == 0 ? M : c == 3 ? ZZ : YY, F);
+    const Fe w2 = Ops::mul(fe_sel(c == 0, M, fe_sel(c == 1, P.X, YY)),
+                           fe_sel(c == 0, M, fe_sel(c == 3, ZZ, YY)), F);
     const Fe MM = fe_shfl_quad(w2, 0, mask);
     const Fe S = Ops::dbl(Ops::dbl(fe_shfl_quad(w2, 1, mask), F), F);
     const Fe YYYY = fe_shfl_quad(w2, 2, mask);

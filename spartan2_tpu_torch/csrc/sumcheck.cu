@@ -56,7 +56,8 @@
 //                    read; the virtual 2 num_vars domain is zero there):
 //                    sum_{j<num_vars} abc_j z_j, sum_{j<num_extra} abc_j z_j
 //                    and sum_{j<num_extra} (abc_{nv+j} - abc_j)(z_{nv+j} - z_j),
-//                    finished as kernel A's.
+//                    the extra columns in blocks of their own, finished as
+//                    kernel A's.
 //   sp2_inner0_bind  in place into width num_vars: x_j + r (x_{nv+j} - x_j)
 //                    for j < num_extra, (1 - r) x_j for the rest.
 //   sp2_bind_dev, sp2_inner0_bind_dev  the same binds of up to four vectors
@@ -76,9 +77,11 @@
 // products a pair on the carry chains: the products bound it.  Past two
 // blocks an SM a thread takes several pairs, so that its one reduction a
 // sum is amortized; below, a pair a thread keeps the short rounds'
-// latency to one pair's chain.  Round 0 of the inner sum-check reads abc and z once at width
-// num_cols instead of the padded 2 num_vars, and does num_vars + 2
-// num_extra products.
+// latency to one pair's chain.  Round 0 of the inner sum-check (kernel
+// B's sums) reads abc and z once at width num_cols instead of the padded
+// 2 num_vars and does num_vars + num_extra unreduced products: bytes bound
+// it (33.6 MB at SHA-256 1 KiB, 10 us), so its threads load several
+// columns before their products.
 
 #include "field.cuh"
 #include "finish.cuh"
@@ -280,37 +283,69 @@ __global__ void __launch_bounds__(NT) round_kernel(size_t work, size_t stride, u
   finish_sums<NS, NT>(partial, out, ticket, F);
 }
 
-// The structured inner round 0 (kernel B): per instance k = blockIdx.y, the
-// three product sums over abc and z at width num_vars + num_extra,
-// unreduced (one product feeds both eval0 and corr_low), finished like
-// kernel A's.
-__global__ void __launch_bounds__(NT) inner0_evals_kernel(size_t num_vars, size_t num_extra,
-                                                          size_t stride,
-                                                          const uint32_t* abc,
-                                                          const uint32_t* z,
-                                                          uint32_t* partial, uint32_t* out,
-                                                          unsigned* ticket, Field F) {
-  const int k = blockIdx.y;
+// The structured inner round 0 (kernel B): per instance k = blockIdx.y,
+// eval0 = sum_{j<nv} a_j z_j, corr_low = sum_{j<ne} a_j z_j and corr_cross =
+// sum_{j<ne} (a_{nv+j} - a_j)(z_{nv+j} - z_j), the products unreduced.
+// The grid's first nextra blocks take the ne extra columns, a column a
+// thread (four loads, two products); the other blocks take columns ne ..
+// nv - 1 for eval0 alone, one 17-word sum a thread, in chunks of B_NT
+// B_U columns: a thread loads its B_U columns of a chunk (stride B_NT)
+// before their products, so their loads are in flight together and their
+// products independent.  An extra block's columns add to eval0 what they
+// add to corr_low, so its partial row is (corr_low, corr_low, corr_cross)
+// and a main block's (eval0, 0, 0); the last block adds the rows
+// (finish.cuh).
+constexpr int B_NT = 256;
+constexpr int B_U = 4;
+constexpr int B_BLOCKS_PER_SM = 2;
+
+__global__ void __launch_bounds__(B_NT, B_BLOCKS_PER_SM) inner0_evals_kernel(
+    size_t num_vars, size_t num_extra, size_t stride, int nextra, const uint32_t* abc,
+    const uint32_t* z, uint32_t* partial, uint32_t* out, unsigned* ticket, Field F) {
+  const int k = blockIdx.y, t = threadIdx.x;
   const uint32_t* a_k = abc + (size_t)k * stride * 8;
   const uint32_t* z_k = z + (size_t)k * stride * 8;
-  Acc s0 = acc_zero(), s1 = acc_zero(), s2 = acc_zero();
-  for (size_t j = blockIdx.x * (size_t)NT + threadIdx.x; j < num_vars;
-       j += (size_t)gridDim.x * NT) {
-    const Fe a = fe_load(a_k, j), x = fe_load(z_k, j);
-    if (j < num_extra) {
-      Acc prod = acc_zero();
-      fe_mul_acc(prod, a, x);
-      acc_add(s0, prod);
-      acc_add(s1, prod);
-      fe_mul_acc(s2, fe_sub_cc(fe_load(a_k, num_vars + j), a, F),
-                 fe_sub_cc(fe_load(z_k, num_vars + j), x, F));
-    } else {
-      fe_mul_acc(s0, a, x);
+  Fe s[3];
+  if ((int)blockIdx.x < nextra) {
+    Acc low = acc_zero(), cross = acc_zero();
+    for (size_t j = blockIdx.x * (size_t)B_NT + t; j < num_extra; j += (size_t)nextra * B_NT) {
+      const Fe a = fe_load(a_k, j), x = fe_load(z_k, j);
+      const Fe ah = fe_load(a_k, num_vars + j), xh = fe_load(z_k, num_vars + j);
+      fe_mul_acc(low, a, x);
+      fe_mul_acc(cross, fe_sub_cc(ah, a, F), fe_sub_cc(xh, x, F));
     }
+    s[1] = acc_reduce(low, F);
+    s[2] = acc_reduce(cross, F);
+    block_sums<B_NT, 2>(s + 1, F);
+    s[0] = s[1];
+  } else {
+    const size_t chunk = (size_t)B_NT * B_U;
+    Acc e0 = acc_zero();
+    for (size_t j0 = num_extra + (blockIdx.x - nextra) * chunk + t; j0 < num_vars;
+         j0 += (gridDim.x - nextra) * chunk) {
+      Fe a[B_U], x[B_U];
+#pragma unroll
+      for (int u = 0; u < B_U; ++u) {
+        const size_t j = j0 + (size_t)u * B_NT;
+        if (j < num_vars) {
+          a[u] = fe_load(a_k, j);
+          x[u] = fe_load(z_k, j);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < B_U; ++u)
+        if (j0 + (size_t)u * B_NT < num_vars) fe_mul_acc(e0, a[u], x[u]);
+    }
+    s[0] = acc_reduce(e0, F);
+    block_sums<B_NT, 1>(s, F);
+    s[1] = s[2] = fe_zero();
   }
-  Fe s[3] = {acc_reduce(s0, F), acc_reduce(s1, F), acc_reduce(s2, F)};
-  store_block_sums<3, NT>(k, s, partial, F);
-  finish_sums<3, NT>(partial, out, ticket, F);
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      fe_store(partial, ((size_t)k * gridDim.x + blockIdx.x) * 3 + i, s[i]);
+  }
+  finish_sums<3, B_NT>(partial, out, ticket, F);
 }
 
 struct Vec4 {
@@ -411,7 +446,7 @@ extern "C" int sp2_pow_table(int m, const void* gs, void* out,
   return (int)cudaGetLastError();
 }
 
-// Kernel A's and B's grid over ``work`` pairs (entries for DOT): the
+// Kernel A's grid over ``work`` pairs (entries for DOT): the
 // wrapper sizes the partial sums by it.
 static int round_blocks(size_t work) {
   const size_t b = (work + NT - 1) / NT;
@@ -502,16 +537,31 @@ extern "C" int sp2_bind_dev(size_t half, int nvec, void* v0, void* v1, void* v2,
   return (int)cudaGetLastError();
 }
 
+// Kernel B's grid: the extra columns a column a thread in at most
+// INNER0_MAX_EXTRA blocks, the rest a chunk a block up to B_BLOCKS_PER_SM
+// blocks an SM of the H100's 132 in all, more chunks a block past that.
+constexpr int INNER0_MAX_EXTRA = 132;
+constexpr int INNER0_MAX_BLOCKS = 132 * B_BLOCKS_PER_SM;
+static void inner0_blocks(size_t num_vars, size_t num_extra, int* nmain, int* nextra) {
+  const size_t e = (num_extra + B_NT - 1) / B_NT;
+  *nextra = e > INNER0_MAX_EXTRA ? INNER0_MAX_EXTRA : (int)e;
+  const size_t m = (num_vars - num_extra + (size_t)B_NT * B_U - 1) / ((size_t)B_NT * B_U);
+  const size_t cap = (size_t)(INNER0_MAX_BLOCKS - *nextra);
+  *nmain = (int)(m < cap ? m : cap);
+}
+
 extern "C" int sp2_inner0_evals(size_t num_vars, size_t num_extra, int K,
                                 size_t stride, const void* abc, const void* z,
                                 void* partial, int nblocks, void* out, void* ticket,
                                 const uint32_t* field_words, void* stream) {
   Field F = field_from_words(field_words);
-  if (check_instances(K) || num_extra > num_vars || nblocks != round_blocks(num_vars) ||
-      out == nullptr || ticket == nullptr)
+  int nmain, nextra;
+  if (check_instances(K) || num_extra > num_vars || out == nullptr || ticket == nullptr)
     return (int)cudaErrorInvalidValue;
-  inner0_evals_kernel<<<dim3((unsigned)nblocks, (unsigned)K), NT, 0, (cudaStream_t)stream>>>(
-      num_vars, num_extra, stride, (const uint32_t*)abc, (const uint32_t*)z,
+  inner0_blocks(num_vars, num_extra, &nmain, &nextra);
+  if (nmain + nextra < 1 || nblocks != nmain + nextra) return (int)cudaErrorInvalidValue;
+  inner0_evals_kernel<<<dim3((unsigned)nblocks, (unsigned)K), B_NT, 0, (cudaStream_t)stream>>>(
+      num_vars, num_extra, stride, nextra, (const uint32_t*)abc, (const uint32_t*)z,
       (uint32_t*)partial, (uint32_t*)out, (unsigned*)ticket, F);
   return (int)cudaGetLastError();
 }

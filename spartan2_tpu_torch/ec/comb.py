@@ -228,13 +228,13 @@ def to_affine(pts: torch.Tensor, curve: CurveSpec) -> list[Affine]:
 
 def comb_build_plain(gx: torch.Tensor, gy: torch.Tensor, n_win: int,
                      curve: CurveSpec) -> torch.Tensor:
-    """Plain version of ``comb_build``."""
+    """Plain version of ``comb_build``, in its order: each window's base by
+    six doublings of the one before, then T[d] = T[d - 1] + B_w."""
     one = ops.const(1, curve.base, gx.shape[:-1], gx.device)
     B = torch.stack([gx, gy, one], -2)  # (C, 3, 8)
     bases = [B]
     for _ in range(1, n_win):
-        for _ in range(WINDOW_BITS):
-            B = pt_dbl(B, curve)
+        B = pt_dbl_n(B, WINDOW_BITS, curve)
         bases.append(B)
     B = torch.stack(bases)  # (n_win, C, 3, 8)
     rows = [_inf_like(B, curve), B]

@@ -101,19 +101,19 @@ class ShardedSumcheckQuad:
         self.spec = spec
         self.mesh = mesh
 
-    def prove(self, td: DeviceTranscript, A, B, claim, num_rounds: int):
+    def prove(self, td: DeviceTranscript, A, B, claim, num_rounds: int, ticket=None):
         single = SumcheckProverQuad(self.spec)
         mesh, n = self.mesh, 1 << num_rounds
         if not sharded(mesh, n):
-            return single.prove(td, A, B, claim, num_rounds)
+            return single.prove(td, A, B, claim, num_rounds, ticket)
         lw = mesh.log_size
         ctx, coeffs, rs = _open(td, claim, one_dev(self.spec, A.device), num_rounds, 3)
         loc = [mesh.shard(v[:n]) for v in (A, B)]
         single.rounds(ctx, coeffs, rs, td.round, loc, n >> lw, 0, num_rounds - lw,
-                      mesh.all_gather)
+                      mesh.all_gather, ticket)
         full = _rows(mesh, loc)
         single.rounds(ctx, coeffs, rs, td.round, full, mesh.size, num_rounds - lw,
-                      num_rounds)
+                      num_rounds, ticket=ticket)
         _same_state(mesh, ctx)
         return coeffs, rs, tuple(v[0] for v in full), _close(td, ctx, num_rounds)
 
@@ -185,18 +185,19 @@ class ShardedZkSumcheckQuad:
         self.spec = spec
         self.mesh = mesh
 
-    def prove(self, claims: list[int], polys: tuple, num_rounds: int, challenge_fn):
+    def prove(self, claims: list[int], polys: tuple, num_rounds: int, challenge_fn,
+              ticket=None):
         spec, mesh, n = self.spec, self.mesh, 1 << num_rounds
         if not sharded(mesh, n):
-            return prove_zk_quad(spec, claims, polys, num_rounds, challenge_fn)
+            return prove_zk_quad(spec, claims, polys, num_rounds, challenge_fn, ticket)
         lw = mesh.log_size
         loc = [mesh.shard(v[:, :n]) for v in polys]
         rs: list[int] = []
         es = zk_rounds(QUAD, spec, claims, loc, n >> lw, num_rounds - lw, rs, challenge_fn,
-                       mesh.all_gather)
+                       mesh.all_gather, ticket)
         done = len(rs)
         rs_tail, finals = prove_zk_quad(spec, es, tuple(_rows_k(mesh, loc)), lw,
-                                        lambda i, unis: challenge_fn(done + i, unis))
+                                        lambda i, unis: challenge_fn(done + i, unis), ticket)
         _same_challenges(mesh, rs + rs_tail)
         return rs + rs_tail, finals
 

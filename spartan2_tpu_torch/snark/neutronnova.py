@@ -43,7 +43,7 @@ from ..r1cs.multiround import (MultiRoundState, SplitMultiRoundR1CSInstance,
                                SplitMultiRoundR1CSShape)
 from ..r1cs.relaxed import NovaNIFS, R1CSInstance, R1CSShape, RelaxedR1CSInstance
 from ..r1cs.shape import SplitR1CSInstance, SplitR1CSShape
-from ..sumcheck.device import pow_table
+from ..sumcheck.device import new_ticket, pow_table
 from ..sumcheck.nifs import run_nifs, to_small, weighted_fold
 from ..sumcheck.zk_device import inner_round0, prove_zk_cubic, prove_zk_quad
 from ..utils.digest import vk_digest
@@ -485,14 +485,16 @@ class NeutronNovaZkSNARK:
             return vc_round(inner_start + 1 + j)[0]
 
         with span("nn_inner_zk_sumcheck"):
+            ticket = new_ticket(abc_k.device)  # one arrival counter for every round
             r0, _, claims_r0 = inner_round0(F, [claim_inner_s, claim_inner_c], abc_k,
-                                            z_k, num_vars, ne, inner0_challenge)
+                                            z_k, num_vars, ne, inner0_challenge, ticket)
             if mesh is None:
                 r_y_rest, finals_inner = prove_zk_quad(F, claims_r0, (abc_k, z_k),
-                                                       num_rounds_y - 1, inner_challenge)
+                                                       num_rounds_y - 1, inner_challenge,
+                                                       ticket)
             else:
                 r_y_rest, finals_inner = ShardedZkSumcheckQuad(F, mesh).prove(
-                    claims_r0, (abc_k, z_k), num_rounds_y - 1, inner_challenge)
+                    claims_r0, (abc_k, z_k), num_rounds_y - 1, inner_challenge, ticket)
         r_y = [r0] + r_y_rest
         eval_Z_step = finals_inner[0][1]
         eval_Z_core = finals_inner[1][1]

@@ -34,6 +34,7 @@ from ..polys.univariate import UniPoly
 from ..provider.engines import Engine
 from ..r1cs.shape import R1CSWitness, SplitR1CSInstance, SplitR1CSShape
 from ..parallel.sumcheck_shard import ShardedSumcheckCubicEq, ShardedSumcheckQuad
+from ..sumcheck.device import new_ticket
 from ..sumcheck.prove import SpartanInnerRound0, SumcheckProverCubicEq, SumcheckProverQuad
 from ..sumcheck.verify import SumcheckProof
 from ..transcript.device import DeviceTranscript
@@ -410,11 +411,12 @@ class SpartanSNARK:
         num_cols (both zero past it), then the quad rounds over num_vars,
         sharded across ``mesh`` when each rank gets two rows or more
         -> (coeffs (1 + n, 3, 8), challenges (1 + n, 2, 8), eval_Z)."""
+        ticket = new_ticket(abc.device)  # one arrival counter for every round
         claim0, r0, coeffs0 = SpartanInnerRound0(F).run(td, abc, z, claim, num_vars,
-                                                        num_extra)
+                                                        num_extra, ticket)
         n = _log2(num_vars)
         prover = SumcheckProverQuad(F) if mesh is None else ShardedSumcheckQuad(F, mesh)
-        cq, rq, finals, _ = prover.prove(td, abc[:num_vars], z[:num_vars], claim0, n)
+        cq, rq, finals, _ = prover.prove(td, abc[:num_vars], z[:num_vars], claim0, n, ticket)
         return torch.cat([coeffs0[None], cq]), torch.cat([r0[None], rq]), finals[1]
 
     @staticmethod

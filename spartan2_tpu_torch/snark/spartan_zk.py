@@ -39,7 +39,7 @@ from ..r1cs.multiround import (MultiRoundState, SplitMultiRoundR1CSInstance,
                                SplitMultiRoundR1CSShape)
 from ..r1cs.relaxed import NovaNIFS, R1CSShape, RelaxedR1CSInstance
 from ..r1cs.shape import SplitR1CSInstance, SplitR1CSShape
-from ..sumcheck.device import eq_factors, eq_table
+from ..sumcheck.device import eq_factors, eq_table, new_ticket
 from ..sumcheck.zk_device import inner_round0, prove_zk_cubic, prove_zk_quad
 from ..utils.digest import vk_digest
 from ..utils.tracing import span
@@ -225,10 +225,11 @@ class SpartanZkSNARK:
 
         with span("inner_sumcheck"):
             abc_k, z_k = abc[None], z[None]
+            ticket = new_ticket(abc_k.device)  # one arrival counter for every round
             r0, _, claims_r0 = inner_round0(F, [claim_inner], abc_k, z_k, num_vars,
-                                            num_extra, inner0_challenge)
+                                            num_extra, inner0_challenge, ticket)
             r_y_rest, finals_inner = prove_zk_quad(F, claims_r0, (abc_k, z_k),
-                                                   num_rounds_y - 1, inner_challenge)
+                                                   num_rounds_y - 1, inner_challenge, ticket)
         r_y = [r0] + r_y_rest
         eval_Z = finals_inner[0][1]
 

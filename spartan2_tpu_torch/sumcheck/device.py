@@ -54,9 +54,17 @@ _NT = 256
 _G_MAX_BLOCKS = 264
 _G_WAVE = 132
 _G_MIN_SEG = 32
-# kernel A's and B's grid (csrc/sumcheck.cu round_blocks): a pair a thread,
+# kernel A's grid (csrc/sumcheck.cu round_blocks): a pair a thread,
 # at most ROUND_MAX_BLOCKS blocks
 _ROUND_MAX_BLOCKS = 264
+# kernel B's sums (csrc/sumcheck.cu inner0_blocks): blocks of _B_NT threads,
+# the extra columns a column a thread in at most _INNER0_MAX_EXTRA blocks,
+# the rest in chunks of _B_NT * _B_U columns in the blocks left of
+# _INNER0_MAX_BLOCKS
+_B_NT = 256
+_B_U = 4
+_INNER0_MAX_EXTRA = 132
+_INNER0_MAX_BLOCKS = 132 * 2
 
 
 def _check_vecs(vecs: list, n: int) -> None:
@@ -104,9 +112,17 @@ def _g_blocks(half: int, rlog: int, lw: int, two_level: bool) -> int:
 
 
 def _nblocks(work: int) -> int:
-    """Kernel A's and B's grid, as csrc/sumcheck.cu's round_blocks, which
+    """Kernel A's grid, as csrc/sumcheck.cu's round_blocks, which
     refuses another."""
     return max(1, min(-(-work // _NT), _ROUND_MAX_BLOCKS))
+
+
+def _inner0_blocks(num_vars: int, num_extra: int) -> tuple[int, int]:
+    """Kernel B's sums' grid (main blocks, extra blocks), as csrc/sumcheck.cu's
+    inner0_blocks, which refuses another."""
+    nextra = min(-(-num_extra // _B_NT), _INNER0_MAX_EXTRA)
+    nmain = min(-(-(num_vars - num_extra) // (_B_NT * _B_U)), _INNER0_MAX_BLOCKS - nextra)
+    return nmain, nextra
 
 
 def new_ticket(device) -> torch.Tensor | None:
@@ -473,7 +489,7 @@ def inner0_evals_plain(abc: torch.Tensor, z: torch.Tensor, num_vars: int,
 
 
 def inner0_evals(abc: torch.Tensor, z: torch.Tensor, num_vars: int,
-                 num_extra: int, spec: FieldSpec) -> list[tuple[int, int]]:
+                 num_extra: int, spec: FieldSpec, ticket=None) -> list[tuple[int, int]]:
     """Kernel B's evaluations: per instance (eval0, t_inf) of round 0 of
     sum_x abc(x) z(x) over the virtual 2 num_vars domain, from abc and z
     at width num_cols = num_vars + num_extra ((rows, 8) or (K, rows, 8),
@@ -481,14 +497,15 @@ def inner0_evals(abc: torch.Tensor, z: torch.Tensor, num_vars: int,
     eval0 = sum_{j < num_vars} abc_j z_j, and
     t_inf = eval0 - sum_{j < num_extra} abc_j z_j
             + sum_{j < num_extra} (abc_{nv+j} - abc_j)(z_{nv+j} - z_j)
-    (zk_device.py ZkInnerRound0._evals of the JAX package)."""
+    (zk_device.py ZkInnerRound0._evals of the JAX package).  ``ticket``
+    (``new_ticket``) may serve the whole inner sum-check."""
     if not 0 < num_extra <= num_vars:
         raise ValueError("inner0: need 0 < num_extra <= num_vars")
     K, stride = _instances([abc, z])
     if abc.device.type == "cpu":
         sums = _pull(inner0_evals_plain(abc, z, num_vars, num_extra, spec), spec, K)
     else:
-        sums_dev = _inner0_launch(abc, z, num_vars, num_extra, spec)
+        sums_dev = _inner0_launch(abc, z, num_vars, num_extra, spec, ticket)
         sums = _pull(sums_dev, spec, K)
     p = spec.modulus
     return [(e0, (e0 - low + cross) % p) for e0, low, cross in sums]
@@ -551,31 +568,34 @@ def inner0_bind_dev(vecs: list, r_slot: torch.Tensor, num_vars: int, num_extra: 
 
 
 def _inner0_launch(abc: torch.Tensor, z: torch.Tensor, num_vars: int, num_extra: int,
-                   spec: FieldSpec) -> torch.Tensor:
-    """Launch kernel B's sums -> (K, 3, 8) Montgomery on the device."""
+                   spec: FieldSpec, ticket=None) -> torch.Tensor:
+    """Launch kernel B's sums -> (K, 3, 8) Montgomery on the device; a new
+    ticket unless one is given."""
     _check_vecs([abc, z], num_vars + num_extra)
     if abc.shape != z.shape:
         raise ValueError("inner0: abc and z must have one shape")
     K, stride = _instances([abc, z])
-    nblocks = _nblocks(num_vars)
+    nblocks = sum(_inner0_blocks(num_vars, num_extra))
     dev = abc.device
     partial = torch.empty(K * nblocks, 3, 8, dtype=torch.int32, device=dev)
     out = torch.empty(K, 3, 8, dtype=torch.int32, device=dev)
+    if ticket is None:
+        ticket = new_ticket(dev)
     SUMCHECK.call("sp2_inner0_evals", num_vars, num_extra, K, stride, abc.data_ptr(),
                   z.data_ptr(), partial.data_ptr(), nblocks, out.data_ptr(),
-                  new_ticket(dev).data_ptr(), field_words(spec))
+                  ticket.data_ptr(), field_words(spec))
     return out
 
 
 def inner0_sums(abc: torch.Tensor, z: torch.Tensor, num_vars: int, num_extra: int,
-                spec: FieldSpec) -> torch.Tensor:
+                spec: FieldSpec, ticket=None) -> torch.Tensor:
     """Kernel B's sums (eval0, corr_low, corr_cross) of one instance, left
-    on the device as (1, 3, 8) Montgomery."""
+    on the device as (1, 3, 8) Montgomery; ``ticket`` as in ``inner0_evals``."""
     if not 0 < num_extra <= num_vars or abc.dim() != 2:
         raise ValueError("inner0_sums: one instance, 0 < num_extra <= num_vars")
     if abc.device.type == "cpu":
         return inner0_evals_plain(abc, z, num_vars, num_extra, spec)
-    return _inner0_launch(abc, z, num_vars, num_extra, spec)
+    return _inner0_launch(abc, z, num_vars, num_extra, spec, ticket)
 
 
 # ---------------------------------------------------------------------------

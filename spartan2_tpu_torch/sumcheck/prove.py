@@ -250,14 +250,16 @@ def _close(td: DeviceTranscript, ctx: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def _rounds_on_a(spec: FieldSpec, mode: int, ctx, coeffs, rs, round0: int, vecs: list,
-                 n: int, j0: int, j1: int, gather=None) -> None:
+                 n: int, j0: int, j1: int, gather=None, ticket=None) -> None:
     """Rounds j0 .. j1 - 1 of kernel A's CUBIC (F's CUBIC_EVALS) or QUAD
     (QUAD_EVALS) mode over the first n rows of ``vecs``: each round after
     the first binds the one before it in its own launch, reading r from
     that round's slot, and one bind follows the last round; ``gather``
-    joins a round's sums across ranks."""
+    joins a round's sums across ranks; ``ticket`` (``new_ticket``, made
+    here if None) serves every round."""
     fmode = CUBIC_EVALS if mode == CUBIC else QUAD_EVALS
-    ticket = new_ticket(vecs[0].device)
+    if ticket is None:
+        ticket = new_ticket(vecs[0].device)
     for j in range(j0, j1):
         if j > j0:
             n //= 2
@@ -298,20 +300,22 @@ class SumcheckProverQuad:
     def __init__(self, spec: FieldSpec):
         self.spec = spec
 
-    def prove(self, td: DeviceTranscript, A, B, claim, num_rounds: int):
+    def prove(self, td: DeviceTranscript, A, B, claim, num_rounds: int, ticket=None):
         """claim = sum_x A(x) B(x) over the first 2^num_rounds rows (bound
         in place), every round one launch of kernel A (its two sums, the
         previous round's bind folded in) and F, then one bind
         -> (coeffs (m, 3, 8), challenges (m, 2, 8), (A, B) finals, claim)."""
         ctx, coeffs, rs = _open(td, claim, one_dev(self.spec, A.device), num_rounds, 3)
-        self.rounds(ctx, coeffs, rs, td.round, [A, B], 1 << num_rounds, 0, num_rounds)
+        self.rounds(ctx, coeffs, rs, td.round, [A, B], 1 << num_rounds, 0, num_rounds,
+                    ticket=ticket)
         return coeffs, rs, (A[0], B[0]), _close(td, ctx, num_rounds)
 
     def rounds(self, ctx, coeffs, rs, round0: int, vecs: list, n: int, j0: int, j1: int,
-               gather=None) -> None:
+               gather=None, ticket=None) -> None:
         """Rounds j0 .. j1 - 1 over the first n rows of ``vecs`` (bound in
         place); ``gather`` joins a round's sums across ranks."""
-        _rounds_on_a(self.spec, QUAD, ctx, coeffs, rs, round0, vecs, n, j0, j1, gather)
+        _rounds_on_a(self.spec, QUAD, ctx, coeffs, rs, round0, vecs, n, j0, j1, gather,
+                     ticket)
 
 
 def _upload_with_eq_tables(spec: FieldSpec, head: list[int], splits: list, device):
@@ -426,11 +430,13 @@ class SpartanInnerRound0:
     def __init__(self, spec: FieldSpec):
         self.spec = spec
 
-    def run(self, td: DeviceTranscript, abc, z, claim, num_vars: int, num_extra: int):
-        """-> (claim after round 0, challenge slot (2, 8), coeffs (3, 8))."""
+    def run(self, td: DeviceTranscript, abc, z, claim, num_vars: int, num_extra: int,
+            ticket=None):
+        """-> (claim after round 0, challenge slot (2, 8), coeffs (3, 8));
+        ``ticket`` (``new_ticket``) may serve the quad rounds after it too."""
         spec = self.spec
         ctx, coeffs, rs = _open(td, claim, one_dev(spec, abc.device), 1, 3)
-        sums = inner0_sums(abc, z, num_vars, num_extra, spec)
+        sums = inner0_sums(abc, z, num_vars, num_extra, spec, ticket)
         round_finish(INNER0, sums, ctx, coeffs[0], rs[0], td.round, spec)
         inner0_bind_dev([abc, z], rs[0], num_vars, num_extra, spec)
         return _close(td, ctx, 1), rs[0], coeffs[0]

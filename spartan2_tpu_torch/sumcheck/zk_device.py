@@ -49,7 +49,7 @@ def prove_zk_cubic(spec: FieldSpec, claims: list[int], E: torch.Tensor,
 
 
 def prove_zk_quad(spec: FieldSpec, claims: list[int], polys: tuple,
-                  num_rounds: int, challenge_fn):
+                  num_rounds: int, challenge_fn, ticket=None):
     """claim_k = sum_j A_k[j] Z_k[j] over the first 2^num_rounds entries.
     ``polys``: (A, Z), each (K, rows, 8) Montgomery, bound in place.  Round
     polynomials come from from_evals_deg2([t0, claim - t0,
@@ -57,26 +57,29 @@ def prove_zk_quad(spec: FieldSpec, claims: list[int], polys: tuple,
     A, Z = polys
     K = A.shape[0]
     rs: list[int] = []
-    zk_rounds(QUAD, spec, claims, [A, Z], 1 << num_rounds, num_rounds, rs, challenge_fn)
+    zk_rounds(QUAD, spec, claims, [A, Z], 1 << num_rounds, num_rounds, rs, challenge_fn,
+              ticket=ticket)
     vals = limbs_to_ints(torch.stack([A[:, 0], Z[:, 0]], 1).reshape(-1, 8), spec,
                          mont=True)
     return rs, [tuple(vals[2 * k : 2 * k + 2]) for k in range(K)]
 
 
 def zk_rounds(mode: int, spec: FieldSpec, claims: list[int], vecs: list, n: int,
-              rounds: int, rs: list, challenge_fn, gather=None) -> list[int]:
+              rounds: int, rs: list, challenge_fn, gather=None, ticket=None) -> list[int]:
     """``rounds`` ZK rounds of kernel A's CUBIC (vecs E, A, B, C) or QUAD
     (A, Z) mode over the first n rows of ``vecs`` (bound in place: each
     round after the first binds the one before it in its own launch, and
     one bind follows the last), the
     challenges appended to ``rs`` and asked of ``challenge_fn(len(rs),
     unipolys)`` -> the claims after them.  ``gather`` joins a round's
-    (K, sums, 8) sums across ranks, (W K, sums, 8) in rank order."""
+    (K, sums, 8) sums across ranks, (W K, sums, 8) in rank order;
+    ``ticket`` (``new_ticket``, made here if None) serves every round."""
     p = spec.modulus
     es = [c % p for c in claims]
     K = len(es)
     ns = 3 if mode == CUBIC else 2
-    ticket = new_ticket(vecs[0].device)
+    if ticket is None:
+        ticket = new_ticket(vecs[0].device)
     # the eq vector shared by K > 1 instances is bound out of place, into
     # the other of two buffers in turn
     E = vecs[0]
@@ -113,18 +116,19 @@ def zk_rounds(mode: int, spec: FieldSpec, claims: list[int], vecs: list, n: int,
 
 def inner_round0(spec: FieldSpec, claims: list[int], abc: torch.Tensor,
                  z: torch.Tensor, num_vars: int, num_extra: int,
-                 challenge_fn):
+                 challenge_fn, ticket=None):
     """Round 0 of the inner sum-check on kernel B, structured: abc and z
     hold the nonzero prefix (width num_cols = num_vars + num_extra) of
     the virtual 2 num_vars polynomials ((K, rows, 8) or (rows, 8)).  The
     round polynomial from_evals_deg2([eval0, claim - eval0,
     2 claim - 3 eval0 + 2 t_inf]) goes to ``challenge_fn(unipolys)``; abc
-    and z are bound in place to width num_vars.
+    and z are bound in place to width num_vars; ``ticket`` (``new_ticket``)
+    may serve the rounds after it too.
     -> (r0, unipolys, claims after round 0)."""
     p = spec.modulus
     unis = [UniPoly.from_evals_deg2(spec, [e0, (c - e0) % p,
                                            (2 * c - 3 * e0 + 2 * t_inf) % p])
-            for (e0, t_inf), c in zip(inner0_evals(abc, z, num_vars, num_extra, spec),
+            for (e0, t_inf), c in zip(inner0_evals(abc, z, num_vars, num_extra, spec, ticket),
                                       claims)]
     r0 = challenge_fn(unis)
     inner0_bind(abc, z, r0, num_vars, num_extra, spec)
